@@ -1,0 +1,322 @@
+"""SAM2Engine: the per-frame streaming step functions.
+
+Counterpart of the JAX package's ``track.py`` (``SAM2Engine``), eager
+PyTorch: each public method runs the model on the engine's device and
+updates the caller's MemoryBank in place (see ``state.py``). Signatures and
+output dict keys are the JAX engine's. Inputs may be numpy arrays or
+tensors; outputs are tensors on the engine's device.
+
+Attention routing on the main path: Hiera global blocks and memory
+self-attention go to K1 (``ops.attention.flash_attention``); memory
+cross-attention goes to K1 with a bias (gather mode) or to K2
+(``flash_attention_banked``, banked mode, the default on CUDA).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from det_sam2_tpu_torch import convert
+from det_sam2_tpu_torch.configs import SAM2Config
+from det_sam2_tpu_torch.modeling.layers import LayerNorm
+from det_sam2_tpu_torch.modeling.sam2_base import SAM2Model, resize_bilinear
+from det_sam2_tpu_torch.ops import attention
+from det_sam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
+from det_sam2_tpu_torch.state import (
+    MemoryBank,
+    memory_layout,
+    resolve_device,
+    select_memory,
+    write_cond,
+    write_noncond,
+)
+
+
+def _maybe_fill_holes(cfg: SAM2Config, low_res: torch.Tensor) -> torch.Tensor:
+    """fill_holes_in_mask_scores on the low-res logits (fill_hole_area)."""
+    if cfg.fill_hole_area > 0:
+        return fill_holes_in_mask_scores(low_res, float(cfg.fill_hole_area))
+    return low_res
+
+
+def use_multimask(cfg: SAM2Config, is_init: bool, num_pts: int) -> bool:
+    """SAM 2's _use_multimask."""
+    return (
+        cfg.multimask_output_in_sam
+        and (is_init or cfg.multimask_output_for_tracking)
+        and (cfg.multimask_min_pt_num <= num_pts <= cfg.multimask_max_pt_num)
+    )
+
+
+def normalize_image(img: torch.Tensor) -> torch.Tensor:
+    """uint8 frames pass through raw (the patch embed normalises them);
+    float inputs are taken as already normalised."""
+    if img.dtype == torch.uint8:
+        return img
+    return img.float()
+
+
+def _broadcast_feats(feats, o: int):
+    return tuple(
+        f.expand((o,) + tuple(f.shape[1:])) if f.shape[0] == 1 else f
+        for f in feats
+    )
+
+
+def _assemble_memory(model: SAM2Model, cfg: SAM2Config, sel):
+    """Pack gathered bank slots into the attention token sequence: spatial
+    tiles then object-pointer tokens, with positions and validity."""
+    lay = sel["layout"]
+    s = lay.tokens_per_tile
+    cm = cfg.mem_dim
+    base = model.sine_pe(cfg.image_embedding_size, cm, sel["ptrs"].device)
+    tpos = model.maskmem_tpos_enc[sel["spatial_tpos"], 0, 0].float()  # [T, Cm]
+    spatial_pos = (base[None] + tpos[:, None]).reshape(1, -1, cm)
+    ptrs = sel["ptrs"]  # [O, P, C]
+    o, p, c = ptrs.shape
+    tpp = c // cm
+    ptr_tokens = ptrs.reshape(o, p * tpp, cm)
+    ptr_pe = model.obj_ptr_tpos(sel["ptr_dist"].float(), sel["t_diff_max"])
+    ptr_pos = ptr_pe.repeat_interleave(tpp, 0)[None]
+    memory = torch.cat([sel["spatial_mem"],
+                        ptr_tokens.to(sel["spatial_mem"].dtype)], 1)
+    memory_pos = torch.cat([spatial_pos, ptr_pos.to(spatial_pos.dtype)], 1)
+    valid = torch.cat([sel["spatial_valid"].repeat_interleave(s, 1),
+                       sel["ptr_valid"].repeat_interleave(tpp, 1)], 1)
+    return memory, memory_pos, valid, lay
+
+
+def _conditioned_features(model, cfg, feat_o, bank, frame_idx, num_frames,
+                          reverse: bool, is_init: bool):
+    """Memory-condition the current frame's features."""
+    if is_init or cfg.num_maskmem == 0:
+        if cfg.directly_add_no_mem_embed:
+            return model.no_mem_features(feat_o)
+        raise NotImplementedError("SAM 2.1 always sets directly_add_no_mem_embed")
+    if bank.mem_k is not None:
+        return _conditioned_features_banked(model, cfg, feat_o, bank,
+                                            frame_idx, num_frames, reverse)
+    sel = select_memory(cfg, bank, frame_idx, num_frames, reverse)
+    memory, memory_pos, valid, lay = _assemble_memory(model, cfg, sel)
+    return model.attend_memory(feat_o, memory, memory_pos, valid,
+                               num_mem_frames=lay.num_mem_frames,
+                               num_obj_ptr_tokens=lay.num_ptr_tokens)
+
+
+def _conditioned_features_banked(model, cfg, feat_o, bank, frame_idx,
+                                 num_frames, reverse: bool):
+    """Bank-indirect conditioning: no tile gathers and no per-frame K
+    projection; K2 reads the cached K (mem_k) and raw V (mem_v) from the
+    selected bank rows. Only the obj-ptr tokens (written in place into the
+    staging row), the validity mask and the tpos vectors are built here."""
+    sel = select_memory(cfg, bank, frame_idx, num_frames, reverse,
+                        gather_spatial=False)
+    lay = sel["layout"]
+    s = lay.tokens_per_tile
+    cm = cfg.mem_dim
+    ptrs = sel["ptrs"]
+    o, p, c = ptrs.shape
+    tpp = c // cm
+    n_ptr = p * tpp
+    if n_ptr > s:
+        raise ValueError(f"{n_ptr} obj-ptr tokens do not fit the {s}-token "
+                         "staging tile; use the gather path (banked_layers=0)")
+    ptr_tokens = ptrs.reshape(o, n_ptr, cm).to(bank.mem_v.dtype)
+    ptr_pe = model.obj_ptr_tpos(sel["ptr_dist"].float(), sel["t_diff_max"])
+    ptr_pos = ptr_pe.repeat_interleave(tpp, 0)[None]
+    stage_k = model.project_memory_k(ptr_tokens + ptr_pos.to(ptr_tokens.dtype),
+                                     spatial=False)  # [O, L, n_ptr, D]
+    stage_row = bank.mem_k.shape[0] - 1
+    bank.mem_k[stage_row, :, :, :n_ptr] = stage_k.to(bank.mem_k.dtype)
+    bank.mem_v[stage_row, :, :n_ptr] = ptr_tokens
+    dev = ptrs.device
+    slots = torch.cat([sel["slots"],
+                       torch.full((1,), stage_row, dtype=torch.int32, device=dev)])
+    tpos = model.maskmem_tpos_enc[sel["spatial_tpos"], 0, 0]  # [T, Cm]
+    tpos_vecs = torch.cat([tpos, tpos.new_zeros(1, cm)])
+    valid_sp = sel["spatial_valid"].repeat_interleave(s, 1)  # [O, T*S]
+    valid_stage = torch.nn.functional.pad(
+        sel["ptr_valid"].repeat_interleave(tpp, 1), (0, s - n_ptr))
+    mask = torch.cat([valid_sp, valid_stage], 1)
+    return model.attend_memory_banked(feat_o, bank.mem_k, bank.mem_v, slots,
+                                      tpos_vecs, mask)
+
+
+def _memk(model, bank, smem):
+    """K cache of a bank write (None in gather mode)."""
+    return model.project_memory_k(smem) if bank.mem_k is not None else None
+
+
+class SAM2Engine:
+    """Holds the model and the step functions. All tracking state lives in
+    the MemoryBank owned by the caller."""
+
+    def __init__(self, cfg: SAM2Config, params: Optional[dict] = None,
+                 dtype: torch.dtype = torch.float32, device=None, seed: int = 0,
+                 plain_kernels: bool = False):
+        """params: a state dict in the SAM 2.1 layout (e.g.
+        ``convert.from_jax_params``), or None for the seeded random init.
+        device: None = CUDA (raises without a card). plain_kernels=True
+        computes every kernel's plain PyTorch version instead of launching
+        it: the reference run of a session."""
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        if plain_kernels:
+            attn_fn, banked_fn = attention.plain_attention_fns()
+        else:
+            attn_fn, banked_fn = attention.flash_attention, attention.flash_attention_banked
+        model = SAM2Model(cfg, attention_fn=attn_fn, banked_attention_fn=banked_fn,
+                          dtype=dtype)
+        if params is None:
+            params = convert.init_params(model, seed)
+        model.load_state_dict(params, strict=True)
+        model = model.to(device=self.device, dtype=dtype).eval()
+        # LayerNorm computes in fp32; keep its parameters fp32 as well
+        for m in model.modules():
+            if isinstance(m, LayerNorm):
+                m.float()
+        self.model = model
+
+    @property
+    def banked_layers(self) -> int:
+        """Memory-attention layer count for the banked-attention caches
+        (``state.init_bank(banked_layers=)``), or 0 for the gather path. On
+        by default on CUDA when the worst-case obj-ptr token count fits one
+        staging tile."""
+        lay = memory_layout(self.cfg)  # full-capacity cond tiles
+        if self.device.type == "cuda" and lay.num_ptr_tokens <= lay.tokens_per_tile:
+            return self.cfg.memory_attention.num_layers
+        return 0
+
+    def _t(self, x, dtype=None) -> torch.Tensor:
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        return t.to(device=self.device, dtype=dtype)
+
+    def _obj_valid(self, obj_valid, o: int) -> torch.Tensor:
+        if obj_valid is None:
+            return torch.ones(o, dtype=torch.bool, device=self.device)
+        return self._t(obj_valid, torch.bool)
+
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def encode_image(self, img):
+        """img [1, H, W, 3] (uint8 raw or normalised float) -> (feat_s0,
+        feat_s1, feat), NHWC."""
+        return self.model.forward_image(normalize_image(self._t(img)))
+
+    def _track(self, feats, bank, frame_idx, num_frames, reverse, obj_valid):
+        """Memory read -> SAM heads -> memory write (in place) -> outputs."""
+        cfg, m = self.cfg, self.model
+        o = bank.num_objects
+        s0, s1, feat = _broadcast_feats(feats, o)
+        pix = _conditioned_features(m, cfg, feat, bank, frame_idx, num_frames,
+                                    reverse, is_init=False)
+        multimask = use_multimask(cfg, is_init=False, num_pts=0)
+        (_, _, ious, low_res, high_res, obj_ptr, obj_logits) = m.forward_sam_heads(
+            pix, high_res_features=[s0, s1], multimask_output=multimask)
+        maskmem = m.encode_memory(feat, high_res, obj_logits, binarize=False,
+                                  apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
+        smem = maskmem.reshape(o, -1, cfg.mem_dim)
+        write_noncond(bank, frame_idx, smem, obj_ptr,
+                      obj_valid=self._obj_valid(obj_valid, o),
+                      mem_k=_memk(m, bank, smem))
+        return bank, {
+            "pred_masks": _maybe_fill_holes(cfg, low_res),
+            "obj_ptr": obj_ptr,
+            "object_score_logits": obj_logits,
+            "ious": ious,
+        }
+
+    @torch.no_grad()
+    def track_step(self, feats, bank: MemoryBank, frame_idx: int,
+                   num_frames: int, reverse: bool = False, obj_valid=None):
+        """Track one unprompted frame from its features. Returns (bank,
+        outputs); the bank is updated in place."""
+        return self._track(feats, bank, int(frame_idx), int(num_frames),
+                           bool(reverse), obj_valid)
+
+    @torch.no_grad()
+    def stream_step(self, img, bank: MemoryBank, frame_idx: int,
+                    num_frames: int, reverse: bool = False, obj_valid=None):
+        """img [1, H, W, 3] -> (bank, outputs): image encode + track +
+        memory write, the streaming hot path."""
+        feats = self.model.forward_image(normalize_image(self._t(img)))
+        return self._track(feats, bank, int(frame_idx), int(num_frames),
+                           bool(reverse), obj_valid)
+
+    @torch.no_grad()
+    def prompt_step(self, feats, bank: MemoryBank, frame_idx: int,
+                    num_frames: int, points, labels, is_init: bool,
+                    reverse: bool = False, prev_logits=None):
+        """SAM heads with point / box prompts (no memory write: the caller
+        encodes with encode_cond_memory). points [O, P, 2] in model pixels;
+        labels [O, P]; prev_logits [O, 1, s4, s4] or None."""
+        cfg, m = self.cfg, self.model
+        points = self._t(points, torch.float32)
+        labels = self._t(labels, torch.int64)
+        o = points.shape[0]
+        s0, s1, feat = _broadcast_feats(feats, o)
+        pix = _conditioned_features(m, cfg, feat, bank, int(frame_idx),
+                                    int(num_frames), bool(reverse), bool(is_init))
+        mask_inputs = None
+        if prev_logits is not None:
+            # previous low-res logits as a dense prompt, clamped to +-32
+            mask_inputs = self._t(prev_logits, torch.float32).clamp(-32.0, 32.0)
+            mask_inputs = mask_inputs[:, 0, :, :, None]
+        multimask = use_multimask(cfg, bool(is_init), points.shape[1])
+        (_, _, ious, low_res, _, obj_ptr, obj_logits) = m.forward_sam_heads(
+            pix, point_coords=points, point_labels=labels, mask_inputs=mask_inputs,
+            high_res_features=[s0, s1], multimask_output=multimask)
+        return {
+            "pred_masks": _maybe_fill_holes(cfg, low_res),
+            "obj_ptr": obj_ptr,
+            "object_score_logits": obj_logits,
+            "ious": ious,
+        }
+
+    def _encode(self, feats, bank, frame_idx, low_res_masks, obj_logits,
+                obj_ptr, is_mask_from_pts, obj_valid, to_cond, pinned=False):
+        cfg, m = self.cfg, self.model
+        low_res_masks = self._t(low_res_masks, torch.float32)
+        o = low_res_masks.shape[0]
+        _, _, feat = _broadcast_feats(feats, o)
+        high_res = resize_bilinear(low_res_masks, (cfg.image_size, cfg.image_size))
+        binarize = cfg.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts
+        maskmem = m.encode_memory(feat, high_res, self._t(obj_logits, torch.float32),
+                                  binarize=binarize,
+                                  apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
+        smem = maskmem.reshape(o, -1, cfg.mem_dim)
+        memk = _memk(m, bank, smem)
+        obj_ptr = self._t(obj_ptr)
+        valid = self._obj_valid(obj_valid, o)
+        if to_cond:
+            return write_cond(bank, int(frame_idx), smem, obj_ptr, obj_valid=valid,
+                              pinned=pinned, mem_k=memk)
+        return write_noncond(bank, int(frame_idx), smem, obj_ptr, obj_valid=valid,
+                             mem_k=memk)
+
+    @torch.no_grad()
+    def encode_cond_memory(self, feats, bank: MemoryBank, frame_idx: int,
+                           low_res_masks, object_score_logits, obj_ptr,
+                           is_mask_from_pts: bool = True, pinned: bool = False,
+                           obj_valid=None) -> MemoryBank:
+        """Encode a consolidated prompted frame and write it to the cond
+        bank (in place)."""
+        return self._encode(feats, bank, frame_idx, low_res_masks,
+                            object_score_logits, obj_ptr, bool(is_mask_from_pts),
+                            obj_valid, to_cond=True, pinned=bool(pinned))
+
+    @torch.no_grad()
+    def encode_noncond_memory(self, feats, bank: MemoryBank, frame_idx: int,
+                              low_res_masks, object_score_logits, obj_ptr,
+                              is_mask_from_pts: bool = True,
+                              obj_valid=None) -> MemoryBank:
+        """Encode a consolidated frame into the NON-cond bank (in place)."""
+        return self._encode(feats, bank, frame_idx, low_res_masks,
+                            object_score_logits, obj_ptr, bool(is_mask_from_pts),
+                            obj_valid, to_cond=False)
