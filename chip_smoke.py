@@ -1,14 +1,16 @@
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # three phases, one card
+    python3 chip_smoke.py            # four phases, one card
 
-Phase 1 (kernels): builds every CUDA kernel of the main path from
+Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
-plain PyTorch version at the shapes the main path gives it (hiera-S,
-1024^2, 2 objects), in bf16 and fp32 with TF32 off; times kernel, plain
-version and, for K1, torch's scaled_dot_product_attention as a yardstick.
-Planted faults (a skipped key tile, a wrong slot, no RoPE correction, ...)
-must fail the same check.
+plain PyTorch version at the shapes the paths give it (serving: hiera-S,
+1024^2, 2 objects; training: hiera-b+, 1024^2, T = 8, 3 objects), in bf16
+and fp32 with TF32 off; times kernel, plain version and torch's
+scaled_dot_product_attention (forward for K1, backward for K3a / K3b) as a
+yardstick. Planted faults (a skipped key tile, a wrong slot, no RoPE
+correction, dq without the delta term, dv from the wrong tile, ...) must
+fail the same check.
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
@@ -19,6 +21,15 @@ gather mode, with every kernel replaced by its plain version, and in fp32
 with the plain versions; their masks, object pointers and raw memory
 cross-attention outputs must agree, and sessions with a fault planted in
 K2's wrapper must fail.
+Phase 4 (training path): the MOSE finetune recipe's train step at full
+width (hiera-b+ 1024^2, fp32, T = 8, 3 objects, batch 1, drop-path 0.1,
+rematerialised image encoder) on seeded random weights and seeded synthetic
+clips, for box, click-with-corrections and GT-mask prompt schedules; prints
+each step's loss terms, grad_norm, ms, peak memory and the K1 / K3a / K3b
+launches against the count the schedule implies. Then one step's gradients
+with the kernels against the plain forward and backward on the card, gated
+by the spread of two plain runs that differ only in rounding (TF32 on), and
+two sessions with a fault planted in K3's wrappers that must fail the gate.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -27,7 +38,9 @@ no CUDA card or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -55,8 +68,12 @@ MAX_ULPS = {torch.bfloat16: 4, torch.float32: 1024}
 MEAN_EPS = {torch.bfloat16: 0.4, torch.float32: 64}
 K1_SRC = "det_sam2_tpu_torch/csrc/flash_fwd.cu"
 K2_SRC = "det_sam2_tpu_torch/csrc/flash_banked_fwd.cu"
+K3A_SRC = "det_sam2_tpu_torch/csrc/flash_bwd_dq.cu"
+K3B_SRC = "det_sam2_tpu_torch/csrc/flash_bwd_dkv.cu"
 K1_TPU = "det_sam2_tpu/ops/attention.py:48"
 K2_TPU = "det_sam2_tpu/ops/attention.py:448"
+K3A_TPU = "det_sam2_tpu/ops/attention.py:196"
+K3B_TPU = "det_sam2_tpu/ops/attention.py:248"
 
 
 def log(*a):
@@ -120,7 +137,38 @@ def _k1_cases():
           (1, 0, nk_g)]),
         # ragged edges: Nq, Nk off the tiles, D not a multiple of 16
         ("ragged_edges", 3, 100, 200, 40, 24, [(0, 64, 128), (2, 0, 200)]),
+        # training path: hiera-b+ global blocks, 8 frames x 8 heads, D = 56
+        ("hiera_bplus_global", 64, 4096, 4096, 56, 56, None),
     ]
+
+
+# the kernels' rows of the JSON line: (label, dtype) -> the path whose run
+# counts its launches
+K1_ROWS = {("hiera_global", torch.bfloat16): "serving",
+           ("memory_self_attn", torch.bfloat16): "serving",
+           ("gather_cross_attn", torch.bfloat16): "serving",
+           ("hiera_bplus_global", torch.float32): "training"}
+
+
+def _k3_cases():
+    nk = 7 * 4096 + 28  # 1 cond + 6 non-cond tiles + 7 pointers x 4 tokens
+    return [
+        # (label, bh, nq, nk, d, dv, dead key ranges or None for no bias)
+        ("hiera_bplus_global", 64, 4096, 4096, 56, 56, None),
+        ("memory_self_attn", 3, 4096, 4096, 256, 256, None),
+        # training memory is all valid: a zero bias on every key
+        ("memory_cross_attn", 3, 4096, nk, 256, 64, []),
+        ("ragged_edges", 3, 100, 200, 40, 24, [(0, 64, 128), (2, 0, 200)]),
+    ]
+
+
+# planted faults of K3 (att.BWD_FAULTS), per case
+K3_FAULTS = {
+    "hiera_bplus_global": ("dq without the delta term", "a live key tile skipped",
+                           "dv from the wrong tile"),
+    "ragged_edges": ("dq without the delta term", "a live key tile skipped",
+                     "P not zeroed where lse <= -1e29", "dv from the wrong tile"),
+}
 
 
 def _k2_inputs(b, nq, d, cm, s, ktot, nl, slots, layer, dead, dtype, dev,
@@ -178,18 +226,21 @@ def _ulp(x: float, dtype) -> float:
 
 def _held(out, ref, dtype) -> dict:
     """out against ref under the MAX_ULPS / MEAN_EPS rule; `max_ulps` and
-    `mean_eps` are the errors in those units (the gates are 1)."""
+    `mean_eps` are the errors in those units (the gates are 1). A
+    non-finite output fails."""
     diff = (out.float() - ref.float()).abs()
     mag = ref.float().abs()
     err, mean = float(diff.max()), float(diff.mean())
-    if float(mag.max()) == 0:  # no live key anywhere: the output must be 0
+    if not bool(torch.isfinite(out).all()):
+        max_ulps = mean_eps = math.inf
+    elif float(mag.max()) == 0:  # no live key anywhere: the output must be 0
         max_ulps = mean_eps = 0.0 if err == 0 else math.inf
     else:
         max_ulps = err / (MAX_ULPS[dtype] * _ulp(float(mag.max()), dtype))
         mean_eps = mean / (MEAN_EPS[dtype] * torch.finfo(dtype).eps
                            * float(mag.mean()))
     return dict(err=err, mean=mean, max_ulps=max_ulps, mean_eps=mean_eps,
-                good=max_ulps <= 1 and mean_eps <= 1)
+                good=bool(max_ulps <= 1 and mean_eps <= 1))
 
 
 def _fmt(h) -> str:
@@ -213,6 +264,7 @@ def _kill(bias, shape, dev, ranges):
 K1_FAULTS = {
     "hiera_global": [("one KV tile skipped", [(None, 5 * 64, 6 * 64)])],
     "memory_self_attn": [("one KV tile skipped", [(None, 17 * 64, 18 * 64)])],
+    "hiera_bplus_global": [("one KV tile skipped", [(None, 9 * 64, 10 * 64)])],
     "gather_cross_attn": [
         ("one KV tile skipped", [(0, 4096 + 3 * 64, 4096 + 4 * 64)]),
         ("live pointer tokens dropped", [(0, 7 * 4096, 7 * 4096 + 16)]),
@@ -284,10 +336,11 @@ def phase_kernels(dev, results):
                 f"lse_err {lse_err:.3g} ms {ms:.4f} plain_ms "
                 f"{plain:.4f} sdpa_ms {lib:.4f} bound_ms {bnd:.4f} ({by}) "
                 f"{'OK' if good else 'FAIL'}")
-            if dtype == torch.bfloat16 and label != "ragged_edges":
+            if (label, dtype) in K1_ROWS:
                 results.append(dict(
                     name=f"flash_fwd:{label}", route="cuda", source=K1_SRC,
-                    replaces=K1_TPU, kernel="flash_fwd",
+                    replaces=K1_TPU, kernel="flash_fwd", path=K1_ROWS[label, dtype],
+                    dtype=str(dtype)[6:],
                     shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                                bias=None if bias is None else list(bias.shape)),
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
@@ -333,12 +386,100 @@ def phase_kernels(dev, results):
             if dtype == torch.bfloat16 and label != "ragged_edges":
                 results.append(dict(
                     name=f"flash_banked_fwd:{label}", route="cuda", source=K2_SRC,
-                    replaces=K2_TPU, kernel="flash_banked_fwd",
+                    replaces=K2_TPU, kernel="flash_banked_fwd", path="serving",
+                    dtype="bfloat16",
                     shape=dict(q=list(q.shape), mem_k=list(mem_k.shape),
                                mem_v=list(mem_v.shape), slots=len(slots)),
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                     bound_by=by, library_ms=None))
             del args, q, mem_k, mem_v, out, ref
+            torch.cuda.empty_cache()
+    return ok & phase_backward_kernels(dev, results)
+
+
+def _sdpa_backward_ms(q, k, v, bias, dout, iters):
+    """One F.scaled_dot_product_attention call's backward (yardstick)."""
+    qq, kk, vv = (x[:, None].detach().requires_grad_() for x in (q, k, v))
+    mask = None
+    if bias is not None and bool((bias <= -1e29).any()):
+        mask = (bias > -1e29)[:, None, None, :]
+    o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
+    g = dout[:, None]
+    ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True),
+                 iters)
+    del o
+    return ms
+
+
+def phase_backward_kernels(dev, results):
+    """K3a / K3b against flash_attention_bwd_ref on the same inputs (q, k,
+    v, bias, out and lse of the plain forward, a random dO) at the training
+    path's shapes, bf16 and fp32; planted faults; times."""
+    from det_sam2_tpu_torch.ops import attention as att
+
+    ok = True
+    for i, (label, bh, nq, nk, d, dv, dead) in enumerate(_k3_cases()):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias = _k1_inputs(200 + i, bh, nq, nk, d, dv, dtype, dead, dev)
+            g = torch.Generator(device=dev).manual_seed(300 + i)
+            dout = torch.randn(bh, nq, dv, generator=g, device=dev).to(dtype)
+            out, lse = att.flash_attention_ref(q, k, v, bias)
+            delta = (dout.float() * out.float()).sum(-1)
+            args = (q, k, v, bias, dout, lse, delta)
+            got = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+            refs = att.flash_attention_bwd_ref(q, k, v, bias, out, lse, dout)
+            torch.cuda.synchronize()
+            held = [_held(a, b, dtype) for a, b in zip(got, refs)]
+            good = all(h["good"] for h in held)
+            if bias is not None:
+                dead_rows = ~(bias > -1e29).any(-1)
+                good &= all(bool((x[dead_rows] == 0).all()) for x in got)
+            ok &= good
+            if dtype == torch.bfloat16:
+                for fault in K3_FAULTS.get(label, ()):
+                    code = att.BWD_FAULTS[fault]
+                    bad = (att.flash_bwd_dq(*args, fault=code),) + att.flash_bwd_dkv(
+                        *args, fault=code)
+                    hs = [_held(a, b, dtype) for a, b in zip(bad, refs)]
+                    worst = max(hs, key=lambda h: max(h["max_ulps"], h["mean_eps"]))
+                    ok &= _caught("flash_bwd", label, fault, dict(
+                        worst, good=all(h["good"] for h in hs)))
+                    del bad
+            live = bh * nk if bias is None else int((bias > -1e29).sum())
+            kv = live * (d + dv) * q.element_size()
+            common = nbytes(q, dout.float(), lse, delta, bias) + kv
+            b_dq = bound_ms(2.0 * nq * live * (2 * d + dv), common + nbytes(got[0]), dtype)
+            b_dkv = bound_ms(2.0 * nq * live * (2 * d + 2 * dv),
+                             common + nbytes(got[1], got[2]), dtype)
+            iters = 10 if dtype == torch.bfloat16 else 3
+            ms_dq = time_ms(lambda: att.flash_bwd_dq(*args), iters)
+            ms_dkv = time_ms(lambda: att.flash_bwd_dkv(*args), iters)
+            plain = time_ms(lambda: att.flash_attention_bwd_ref(q, k, v, bias, out, lse,
+                                                                dout), 2, 1)
+            lib = None
+            if label != "ragged_edges":
+                lib = _sdpa_backward_ms(q, k, v, bias, dout, iters)
+            log(f"[kernels] flash_bwd {label} {str(dtype)[6:]} q{list(q.shape)} "
+                f"k{list(k.shape)} v{list(v.shape)} bias="
+                f"{'no' if bias is None else 'yes'}: "
+                + "; ".join(f"{n} {_fmt(h)}" for n, h in zip(("dq", "dk", "dv"), held))
+                + f" | dq ms {ms_dq:.4f} bound {b_dq[0]:.4f} ({b_dq[1]}), dkv ms "
+                f"{ms_dkv:.4f} bound {b_dkv[0]:.4f} ({b_dkv[1]}), plain_ms (both) "
+                f"{plain:.4f}, sdpa_backward_ms "
+                f"{'n/a' if lib is None else f'{lib:.4f}'} {'OK' if good else 'FAIL'}")
+            if dtype == torch.float32 and label != "ragged_edges":
+                shape = dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                             bias=None if bias is None else list(bias.shape))
+                for name, src, tpu, h, m, (bnd, by) in (
+                        ("flash_bwd_dq", K3A_SRC, K3A_TPU, held[0], ms_dq, b_dq),
+                        ("flash_bwd_dkv", K3B_SRC, K3B_TPU,
+                         max(held[1:], key=lambda h: h["err"]), ms_dkv, b_dkv)):
+                    results.append(dict(
+                        name=f"{name}:{label}", route="cuda", source=src, replaces=tpu,
+                        kernel=name, path="training", dtype="float32", shape=shape,
+                        max_abs_err=h["err"], ms=m, plain_ms=plain, bound_ms=bnd,
+                        bound_by=by, library_ms=lib))
+            del q, k, v, bias, dout, out, lse, delta, args, got, refs
             torch.cuda.empty_cache()
     return ok
 
@@ -668,6 +809,280 @@ def phase_checks(state):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the training path (MOSE finetune recipe) and its checks
+# ---------------------------------------------------------------------------
+
+TRAIN_T = 8  # frames per clip (the recipe's scratch.num_frames)
+TRAIN_OBJECTS = 3
+N_TRAIN = 5  # train steps: box, click-with-corrections, GT-mask, then two more
+# Gradient gate of the in-context check: relative L2 of each watched
+# parameter's gradient, kernels vs plain, at most GRAD_SPREAD_X times the
+# largest one between two plain runs that differ only in rounding (TF32 on
+# in one), and never above GRAD_GATE_CAP: a zeroed dq or dk takes a
+# projection's gradient (nearly) all the way to relative error 1.
+GRAD_SPREAD_X = 3.0
+GRAD_GATE_FLOOR = 1e-3
+GRAD_GATE_CAP = 0.3
+
+
+def make_trainer(cfg, attention_fn, dev, seed: int = 0):
+    """hiera-b+ SAM2Model with the seeded random init, the object-score
+    head's output bias +1 (so objects count as present and the masks, and
+    their gradients, depend on the features), fp32, on `dev`."""
+    from det_sam2_tpu_torch import convert
+    from det_sam2_tpu_torch.modeling.sam2_base import SAM2Model
+
+    model = SAM2Model(cfg, attention_fn=attention_fn)
+    sd = convert.init_params(model, seed)
+    sd["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(1.0)
+    model.load_state_dict(sd)
+    return model.to(dev)
+
+
+def synthetic_clip(cfg, t, k, seed, dev):
+    """Seeded noise frames [T, 1, S, S, 3] (normalised) with k rectangles
+    moving over the clip, brighter than the noise; their masks are the GT
+    [T, 1, k, S, S]."""
+    s = cfg.image_size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randn(t, 1, s, s, 3, generator=g, device=dev) * 0.5
+    gt = torch.zeros(t, 1, k, s, s, device=dev)
+    for j in range(k):
+        y0, x0 = 100 + 250 * j, 120 + 230 * j
+        for i in range(t):
+            gt[i, 0, j, y0 + 12 * i:y0 + 200 + 12 * i, x0 + 8 * i:x0 + 220 + 8 * i] = 1.0
+    return images + gt.amax(2)[..., None], gt
+
+
+def _kind(sch) -> str:
+    if not sch.use_pt_input:
+        return "GT-mask"
+    return "box" if sch.use_box_per_frame[0] else "click"
+
+
+def pick_schedules(conf, t: int, n: int):
+    """n (seed, schedule) pairs of sample_prompt_schedule: the first seeds
+    that give a box, a click and a GT-mask schedule, then the next seeds."""
+    from det_sam2_tpu_torch.training.sam2_train import sample_prompt_schedule
+
+    first, rest = {}, []
+    for seed in range(10_000):
+        sch = sample_prompt_schedule(np.random.default_rng(seed), t, conf)
+        if _kind(sch) not in first:
+            first[_kind(sch)] = (seed, sch)
+        elif len(rest) < n:
+            rest.append((seed, sch))
+        if len(first) == 3 and len(rest) >= n:
+            break
+    out = [first["box"], first["click"], first["GT-mask"]] + rest
+    return out[:n]
+
+
+def expected_launches(cfg, sch, t: int) -> dict:
+    """K1 runs in the Hiera global blocks twice (forward and the remat
+    recompute) and in memory self- and cross-attention of every layer of
+    every non-cond frame; K3a and K3b once for each K1 forward that is
+    differentiated."""
+    glob = len(cfg.hiera.global_att_blocks)
+    mem = 2 * cfg.memory_attention.num_layers * (t - len(sch.init_cond_frames))
+    return {"flash_fwd": 2 * glob + mem, "flash_bwd_dq": glob + mem,
+            "flash_bwd_dkv": glob + mem}
+
+
+def phase_train(dev):
+    """MOSE recipe train steps at full width. Returns (ok, launches, state)."""
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.training.recipes import mose_finetune_recipe
+    from det_sam2_tpu_torch.training.train_step import make_optimizer, make_train_step
+
+    recipe = mose_finetune_recipe(total_steps=1000)
+    cfg = recipe.model
+    model = make_trainer(cfg, att.flash_attention, dev)
+    opt = make_optimizer(recipe.optim, model, cfg)
+    step = make_train_step(cfg, model, opt, loss_fn=recipe.loss)
+    images, gt = synthetic_clip(cfg, TRAIN_T, TRAIN_OBJECTS, 0, dev)
+    schedules = pick_schedules(recipe.sample, TRAIN_T, N_TRAIN)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log(f"[train] hiera-b+ {cfg.image_size}^2 fp32, T={TRAIN_T}, {TRAIN_OBJECTS} objects, "
+        f"batch 1, drop_path_rate {cfg.hiera.drop_path_rate}, remat on, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    ok = True
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    for i, (seed, sch) in enumerate(schedules):
+        before = dict(att.LAUNCHES)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step(images, gt, gen, schedule=sch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        vals = {k: float(v) for k, v in metrics.items()}
+        got = {k: att.LAUNCHES[k] - before[k] for k in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        want = expected_launches(cfg, sch, TRAIN_T)
+        finite = all(math.isfinite(v) for v in vals.values())
+        good = finite and got == want
+        ok &= good
+        log(f"[train] step {i + 1} schedule seed {seed}: {_kind(sch)}, init cond frames "
+            f"{list(sch.init_cond_frames)}, corrected frames {list(sch.frames_to_correct)} "
+            f"x {sch.num_correction_pt} clicks | "
+            + " ".join(f"{k} {v:.6g}" for k, v in vals.items())
+            + f" | ms/step {ms:.1f} peak_mem "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB | launches {got} "
+            f"(expected {want}) {'OK' if good else 'FAIL'}")
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    profile_train_step(step, images, gt, gen, schedules[0][1])
+    del opt, step, model
+    torch.cuda.empty_cache()
+    return ok, launches, (cfg, recipe, images, gt)
+
+
+def profile_train_step(step, images, gt, gen, sch):
+    """One more train step (after the counts were read) under
+    torch.profiler: device time by kernel and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(images, gt, gen, schedule=sch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[train-profile] one {_kind(sch)} step under torch.profiler: wall {wall_ms:.1f} ms, "
+        f"device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}, "
+        f"{sum(r[1] for r in rows)} device operations under {len(rows)} names")
+    for ms, n, key in rows[:15]:
+        log(f"[train-profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{n}  {key[:90]}")
+
+
+@contextlib.contextmanager
+def _tf32():
+    """TF32 for every fp32 matmul and convolution inside the block."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _grads_of(model, cfg, loss_fn, images, gt, sch, seed):
+    """One step's loss terms and gradients (no update) with the generator
+    seeded `seed`."""
+    from det_sam2_tpu_torch.training.sam2_train import forward_training
+
+    model.zero_grad(set_to_none=True)
+    g = torch.Generator(device=images.device).manual_seed(seed)
+    outs = forward_training(model, dataclasses.replace(cfg, remat_image_encoder=True),
+                            images, gt, generator=g, schedule=sch)
+    t, s = gt.shape[0], gt.shape[-1]
+    losses = loss_fn(outs, gt.reshape(t, -1, s, s))
+    losses["core_loss"].backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def _watched(name: str, cfg) -> bool:
+    """Hiera global blocks' attention, memory-attention projections."""
+    glob = [f"image_encoder.trunk.blocks.{i}.attn." for i in cfg.hiera.global_att_blocks]
+    return any(name.startswith(p) for p in glob) or (
+        name.startswith("memory_attention.layers.") and "_proj." in name)
+
+
+def _grad_distance(ref, got, cfg):
+    rel = {n: float((got[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in ref.items() if n in got}
+    missing = sorted(set(ref) ^ set(got))
+    watched = {n: r for n, r in rel.items() if _watched(n, cfg)}
+    return rel, watched, missing
+
+
+def phase_train_checks(dev, state):
+    """One step's gradients with the kernels vs the plain forward and
+    backward on the card (same parameters, data, drop-path masks and box
+    noise), gated by the spread of two plain runs that differ only in
+    rounding; two sessions with a fault planted in K3's wrappers must fail
+    the gate."""
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.training.sam2_train import PromptSchedule
+
+    cfg, recipe, images, gt = state
+    sch = PromptSchedule(init_cond_frames=(0,), frames_to_correct=(), use_pt_input=True,
+                         use_box_per_frame=(True,), num_correction_pt=0)
+    loss_fn = recipe.loss
+    plain_model = make_trainer(cfg, functools.partial(att.flash_attention, plain=True), dev)
+    plain_l, plain_g = _grads_of(plain_model, cfg, loss_fn, images, gt, sch, 1)
+    with _tf32():
+        tf32_l, tf32_g = _grads_of(plain_model, cfg, loss_fn, images, gt, sch, 1)
+    del plain_model
+    torch.cuda.empty_cache()
+    _, spread_w, _ = _grad_distance(plain_g, tf32_g, cfg)
+    del tf32_g
+    spread = max(spread_w.values())
+    gate = min(max(GRAD_SPREAD_X * spread, GRAD_GATE_FLOOR), GRAD_GATE_CAP)
+    log(f"[train-checks] box schedule, no clicks: plain fp32 vs plain TF32 (rounding "
+        f"only): watched gradients relative L2 max {spread:.4g}, loss "
+        f"{plain_l['core_loss']:.6g} vs {tf32_l['core_loss']:.6g}; gate "
+        f"{gate:.4g} = min(max({GRAD_SPREAD_X} x spread, {GRAD_GATE_FLOOR}), "
+        f"{GRAD_GATE_CAP})")
+
+    model = make_trainer(cfg, att.flash_attention, dev)
+
+    def run(label, must_pass: bool) -> bool:
+        losses, grads = _grads_of(model, cfg, loss_fn, images, gt, sch, 1)
+        rel, watched, missing = _grad_distance(plain_g, grads, cfg)
+        loss_rel = max(abs(losses[k] - plain_l[k]) / max(abs(plain_l[k]), 1e-30)
+                       for k in plain_l)
+        worst_w = max(watched, key=watched.get)
+        worst = max(rel, key=rel.get)
+        good = not missing and watched[worst_w] <= gate and loss_rel <= gate
+        log(f"[train-checks] {label}: loss terms max relative difference "
+            f"{loss_rel:.4g}; watched gradients ({len(watched)} tensors) relative L2 max "
+            f"{watched[worst_w]:.4g} ({worst_w}); qkv of the global blocks "
+            + ", ".join(f"{watched[n]:.3g}" for n in sorted(watched) if "qkv.weight" in n)
+            + "; memory q/k/v_proj weights max "
+            + f"{max(r for n, r in watched.items() if 'memory' in n and 'out_proj' not in n and n.endswith('weight')):.3g}"
+            + f"; all {len(rel)} gradients max {rel[worst]:.4g} ({worst})"
+            + (f"; missing {missing}" if missing else "")
+            + f" -> {'within' if good else 'outside'} the gate "
+            f"{'OK' if good == must_pass else 'FAIL'}")
+        return good == must_pass
+
+    ok = run("kernels vs plain", True)
+    for fault, name, idx in (("K3b's dk zeroed", "flash_bwd_dkv", 0),
+                             ("K3a's dq zeroed", "flash_bwd_dq", None)):
+        orig = getattr(att, name)
+
+        def planted(*a, _orig=orig, _idx=idx, **kw):
+            out = _orig(*a, **kw)
+            if _idx is None:
+                return torch.zeros_like(out)
+            return tuple(torch.zeros_like(x) if j == _idx else x for j, x in enumerate(out))
+
+        setattr(att, name, planted)
+        try:
+            caught = run(f"planted '{fault}' (must fail)", False)
+        finally:
+            setattr(att, name, orig)
+        log(f"[train-checks] planted fault '{fault}': {'caught' if caught else 'MISSED'}")
+        ok &= caught
+    del model
+    torch.cuda.empty_cache()
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -704,16 +1119,38 @@ def main() -> int:
                     log(f"[build] {name}: {line.strip()}")
 
     results = []
+    t_phase = time.time()
     ok = phase_kernels(dev, results)
-    ok_main, launches, state = phase_main(dev)
+    log(f"[time] phase 1 (kernels) {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    ok_main, serving, state = phase_main(dev)
     ok &= ok_main
+    log(f"[time] phase 2 (serving path) {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
     ok &= phase_checks(state)
+    del state
+    torch.cuda.empty_cache()
+    log(f"[time] phase 3 (serving checks) {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    ok_train, training, train_state = phase_train(dev)
+    ok &= ok_train
+    log(f"[time] phase 4 (training path) {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
+    ok &= phase_train_checks(dev, train_state)
+    log(f"[time] phase 4 checks {time.time() - t_phase:.1f} s")
+    counts = {"serving": serving, "training": training}
     for r in results:
-        r["launches"] = launches[r.pop("kernel")]
-    for name in att.LAUNCHES:
-        if launches[name] <= 0:
-            log(f"[main] kernel {name} was not launched by the main path")
-            ok = False
+        r["launches"] = counts[r.pop("path")][r.pop("kernel")]
+    for path, names in (("serving", ("flash_fwd", "flash_banked_fwd")),
+                        ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
+        for name in names:
+            if counts[path][name] <= 0:
+                log(f"[main] kernel {name} was not launched by the {path} path")
+                ok = False
+    if set(att.LAUNCHES) != {n for r in results for n in att.LAUNCHES
+                             if r["name"].startswith(n + ":")}:
+        log("[main] the kernel table does not cover every kernel")
+        ok = False
     if not ok:
         log("chip_smoke: FAILED")
         return 1

@@ -2,8 +2,9 @@
 
 The port's own copy of the JAX package's ``configs.py``: the same plain
 dataclasses, field names, defaults and presets, so a config built for one
-package describes the same model in the other. Fields that only select a
-JAX/TPU code path (int8 trunk, rematerialisation) are left out.
+package describes the same model in the other. The int8-trunk fields
+(``quantize_int8``, ``quant_skip``) select a JAX/TPU code path the port does
+not have yet and are left out.
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ class HieraConfig:
     patch_kernel: int = 7
     patch_stride: int = 4
     patch_padding: int = 3
+    # stochastic depth of both residual branches of every block, linear over
+    # depth (training only: active when the trunk is handed a generator)
+    drop_path_rate: float = 0.0
 
     @property
     def depth(self) -> int:
@@ -168,6 +172,10 @@ class SAM2Config:
     # GELU form in the image encoder. None = auto: exact erf in fp32, tanh
     # in bf16 (the erf/tanh difference, ~1e-3 abs, is below bf16 resolution).
     use_approx_gelu: Optional[bool] = None
+
+    # training: recompute the image encoder's activations in the backward
+    # (torch.utils.checkpoint) instead of keeping them for the T*B frames
+    remat_image_encoder: bool = False
 
     # Capacities of the ring-buffer memory bank (see state.py).
     cond_bank_size: int = 32

@@ -1,6 +1,8 @@
-// Shared core of the two hand-written Hopper flash-attention forward kernels
-// (flash_fwd.cu, flash_banked_fwd.cu).
+// Shared core of the hand-written Hopper flash-attention kernels: the two
+// forward kernels (flash_fwd.cu, flash_banked_fwd.cu) and, further down, the
+// helpers of the two backward kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
+// Forward:
 // One thread block (four warps) computes one 64-row query tile of one
 // (batch * head) row and loops over the key/value tiles itself, in place of
 // the TPU kernel's sequential grid axis. A key tile whose additive bias is
@@ -395,6 +397,145 @@ __device__ inline void flash_body_f32(const Src& src, const float* __restrict__ 
       lse[(size_t)bh * nq + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-20f));
   }
 }
+
+// ---------------------------------------------------------------------------
+// backward (flash_bwd_dq.cu, flash_bwd_dkv.cu): fp32 arithmetic on the CUDA
+// cores for both element types, every tile staged in shared memory as fp32.
+// bf16 inputs are exact in fp32, so only the roundings the TPU kernels make
+// (dS to the input type before the dq / dk products) are bf16 roundings.
+// ---------------------------------------------------------------------------
+
+constexpr float kDeadLse = -1e30f;  // lse of a query row outside Nq: P = 0
+
+// fp32 shared-memory row stride for `width` columns: 16-byte rows, 4 mod 32
+// banks, so the strided micro-tiles below touch 8 (16) different banks for
+// 8 (4) different rows
+__host__ __device__ inline int ld_f32(int width) { return round_up(width, 32) + 4; }
+
+template <typename T> __device__ inline float round_to(float x);
+template <> __device__ inline float round_to<float>(float x) { return x; }
+template <> __device__ inline float round_to<bf16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ inline void store_elem(float* p, float x) { *p = x; }
+__device__ inline void store_elem(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+// Stage rows [0, nrows) of a row-major [*, ncols] global matrix of T into
+// fp32 shared memory (row stride dst_ld); rows >= nvalid and columns in
+// [ncols, ncols_pad) are zero-filled. ncols and ncols_pad are multiples of 8,
+// dst_ld of 4; src and its rows are 16-byte aligned.
+template <typename T>
+__device__ inline void stage_f32(float* dst, int dst_ld, const T* src, size_t src_ld,
+                                 int nvalid, int nrows, int ncols, int ncols_pad) {
+  const int vpr = ncols_pad / 8;
+  for (int i = threadIdx.x; i < nrows * vpr; i += kThreads) {
+    const int r = i / vpr, c = (i % vpr) * 8;
+    float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (r < nvalid && c < ncols) load8(src + r * src_ld + c, f);
+    store8(dst + (size_t)r * dst_ld + c, f);
+  }
+}
+
+__device__ inline float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// acc[i][j] = sum_{k < kdim} A[rg + 16 i][k] * B[cg + 8 j][k] with rg =
+// threadIdx.x / 8, cg = threadIdx.x % 8: the 128 threads tile a (16 RM) x
+// (8 CN) block of A B^T (rows strided so a warp reads distinct banks).
+// kdim is a multiple of 4; lda, ldb multiples of 4.
+template <int RM, int CN>
+__device__ inline void mm_nt(float (&acc)[RM][CN], const float* A, int lda, const float* B,
+                             int ldb, int kdim) {
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < CN; ++j) acc[i][j] = 0.0f;
+  for (int k = 0; k < kdim; k += 4) {
+    float4 a[RM], b[CN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) a[i] = ld4(A + (rg + 16 * i) * lda + k);
+#pragma unroll
+    for (int j = 0; j < CN; ++j) b[j] = ld4(B + (cg + 8 * j) * ldb + k);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < CN; ++j) {
+        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+      }
+  }
+}
+
+// out[r][c] += scale * sum_{k < kdim} A[r][k] * B[k][c] for this thread's
+// rows r = rg + 16 i (i < RM) and columns c = 32 jj + 4 cg + {0..3} over
+// jj < ncols_pad / 32: the (16 RM) x ncols_pad block of out += scale A B.
+// kdim, lda multiples of 4; ldb, ldo multiples of 4; ncols_pad of 32.
+template <int RM>
+__device__ inline void mm_nn_acc(float* out, int ldo, const float* A, int lda, const float* B,
+                                 int ldb, int kdim, int ncols_pad, float scale) {
+  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
+  for (int c = 4 * cg; c < ncols_pad; c += 32) {
+    float acc[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+    for (int k = 0; k < kdim; k += 4) {
+      float4 a[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = ld4(A + (rg + 16 * i) * lda + k);
+      const float4 b0 = ld4(B + (k + 0) * ldb + c), b1 = ld4(B + (k + 1) * ldb + c);
+      const float4 b2 = ld4(B + (k + 2) * ldb + c), b3 = ld4(B + (k + 3) * ldb + c);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        acc[i][0] += a[i].x * b0.x + a[i].y * b1.x + a[i].z * b2.x + a[i].w * b3.x;
+        acc[i][1] += a[i].x * b0.y + a[i].y * b1.y + a[i].z * b2.y + a[i].w * b3.y;
+        acc[i][2] += a[i].x * b0.z + a[i].y * b1.z + a[i].z * b2.z + a[i].w * b3.z;
+        acc[i][3] += a[i].x * b0.w + a[i].y * b1.w + a[i].z * b2.w + a[i].w * b3.w;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float4* o = reinterpret_cast<float4*>(out + (rg + 16 * i) * ldo + c);
+      float4 v = *o;
+      v.x += acc[i][0] * scale;
+      v.y += acc[i][1] * scale;
+      v.z += acc[i][2] * scale;
+      v.w += acc[i][3] * scale;
+      *o = v;
+    }
+  }
+}
+
+// The additive bias of keys [k0, k0 + n) into dst (0 without a bias, -inf
+// past Nk); returns in every thread whether any of them is live (bias above
+// -1e29). Called by every thread; ends with the buffers visible to all.
+__device__ inline bool bias_tile_live(const float* bias, int k0, int n, int nk, float* dst,
+                                      int* flag) {
+  __syncthreads();  // earlier readers of dst / flag are done
+  for (int c = threadIdx.x; c < n; c += kThreads) {
+    const int key = k0 + c;
+    dst[c] = key < nk ? (bias != nullptr ? bias[key] : 0.0f) : -INFINITY;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float mx = -INFINITY;
+    for (int c = 0; c < n; ++c) mx = fmaxf(mx, dst[c]);
+    *flag = mx > kSkipThreshold;
+  }
+  __syncthreads();
+  return *flag != 0;
+}
+
+// Planted faults of the backward kernels, for the checks that must catch
+// them (chip_smoke.py phase 1); 0 in every production call.
+enum BwdFault : int {
+  kFaultNone = 0,
+  kFaultNoDelta = 1,     // K3a: dS = P * dP, the delta term left out
+  kFaultSkipTile = 2,    // K3b: key tile 1 skipped although it is live
+  kFaultUnsafeP = 3,     // both: P = exp(S - lse) also where lse <= -1e29
+  kFaultDvWrongTile = 4  // K3b: tile t's dv written to the rows of tile t + 1
+};
 
 // key rows per tile for element type T
 template <typename T> struct TileK;

@@ -21,8 +21,10 @@ from det_sam2_tpu_torch.modeling.layers import (
     IMAGENET_STD,
     MLP,
     LayerNorm,
+    drop_path,
     exact_gelu,
     sdpa,
+    uniform,
 )
 
 
@@ -115,8 +117,10 @@ class MultiScaleBlock(nn.Module):
 
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  window_size: int, q_stride: Optional[Tuple[int, int]],
-                 mlp_ratio: float, attention_fn: Callable, gelu: Callable):
+                 mlp_ratio: float, attention_fn: Callable, gelu: Callable,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, eps=1e-6)
         self.window_size = window_size
         self.q_stride = q_stride
@@ -129,7 +133,11 @@ class MultiScaleBlock(nn.Module):
                        activation=gelu)
         self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, H, W, C]; keep None, or [2, B] bool: the drop-path masks of
+        the attention and MLP branches (per image, applied after
+        window_unpartition, never on the window-stacked batch)."""
         shortcut = x
         x = self.norm1(x)
         if self.proj is not None:
@@ -149,8 +157,9 @@ class MultiScaleBlock(nn.Module):
             pad_hw = (h + pad_h, w + pad_w)
         if self.window_size > 0:
             x = window_unpartition(x, ws, pad_hw, (h, w))
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        k_attn, k_mlp = (None, None) if keep is None else keep
+        x = shortcut + drop_path(x, self.drop_path_rate, keep=k_attn)
+        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate, keep=k_mlp)
 
 
 class Hiera(nn.Module):
@@ -172,6 +181,8 @@ class Hiera(nn.Module):
         global_blocks = set(c.global_att_blocks or ())
         blocks = []
         embed_dim, num_heads, cur_stage = c.embed_dim, c.num_heads, 1
+        # stochastic depth, linear over depth on both residual branches
+        dpr = [c.drop_path_rate * i / max(c.depth - 1, 1) for i in range(c.depth)]
         for i in range(c.depth):
             dim_out = embed_dim
             window_size = c.window_spec[cur_stage - 1]
@@ -184,12 +195,27 @@ class Hiera(nn.Module):
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, window_size,
                 c.q_stride if i in q_pool_blocks else None, c.mlp_ratio,
-                attention_fn, gelu,
+                attention_fn, gelu, drop_path_rate=dpr[i],
             ))
             embed_dim = dim_out
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def draw_drop_path(self, n: int, generator: torch.Generator,
+                       device) -> Optional[torch.Tensor]:
+        """The drop-path keep masks of a forward over n images, [depth, 2, n]
+        bool (block i keeps an image's branch with probability 1 - dpr[i]),
+        or None when drop_path_rate is 0. Drawn before the forward, so that
+        a rematerialised trunk replays the same masks."""
+        if self.cfg.drop_path_rate <= 0.0:
+            return None
+        rates = torch.tensor([b.drop_path_rate for b in self.blocks], device=device)
+        u = uniform((len(self.blocks), 2, n), generator, device)
+        return u < (1.0 - rates)[:, None, None]
+
+    def forward(self, x: torch.Tensor,
+                drop_keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """x [B, H, W, 3] -> per-stage maps; drop_keep from
+        ``draw_drop_path`` (training) or None (no stochastic depth)."""
         c = self.cfg
         x = self.patch_embed(x)
         h, w = x.shape[1], x.shape[2]
@@ -205,7 +231,7 @@ class Hiera(nn.Module):
         x = x + pe.permute(0, 2, 3, 1).to(x.dtype)
         outputs = []
         for i, blk in enumerate(self.blocks):
-            x = blk(x)
+            x = blk(x, None if drop_keep is None else drop_keep[i])
             if i in c.stage_ends:
                 outputs.append(x)
         return outputs

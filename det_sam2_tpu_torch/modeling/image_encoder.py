@@ -8,7 +8,7 @@ scalp-dropping of the lowest-resolution level. NHWC.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -63,9 +63,11 @@ class ImageEncoder(nn.Module):
         self.neck = FpnNeck(neck_cfg)
         self.scalp = scalp
 
-    def forward(self, sample: torch.Tensor) -> List[torch.Tensor]:
-        """sample [B, H, W, 3] -> NHWC FPN features, highest res first."""
-        features = self.neck(self.trunk(sample))
+    def forward(self, sample: torch.Tensor,
+                drop_keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """sample [B, H, W, 3] -> NHWC FPN features, highest res first.
+        drop_keep: the trunk's drop-path masks (``Hiera.draw_drop_path``)."""
+        features = self.neck(self.trunk(sample, drop_keep))
         if self.scalp > 0:
             features = features[: -self.scalp]
         return features

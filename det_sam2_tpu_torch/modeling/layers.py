@@ -87,6 +87,34 @@ class LayerNorm(nn.Module):
         return (y * self.weight.float() + self.bias.float()).to(orig_dtype)
 
 
+def uniform(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """U[0, 1) fp32 of `shape` drawn from `generator` on the generator's own
+    device, then placed on `device`."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device).to(device)
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator] = None,
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic depth on the leading (batch) axis: each sample is kept
+    with probability keep = 1 - rate and scaled by 1 / keep, or zeroed.
+    The mask is `keep` when given, else drawn from `generator`; with rate 0
+    or neither, x is returned as is (inference never draws).
+
+    Under rematerialisation the masks must be drawn OUTSIDE the checkpointed
+    region and passed in as `keep`: torch.utils.checkpoint replays the
+    global RNG states, not an explicit generator, so a mask drawn inside
+    would be drawn anew in the recomputation and the gradients would belong
+    to another network (the JAX package replays the same key)."""
+    if rate == 0.0 or (generator is None and keep is None):
+        return x
+    if keep is None:
+        keep = uniform((x.shape[0],), generator, x.device) < 1.0 - rate
+    mask = keep.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def sdpa_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              bias: Optional[torch.Tensor] = None):
     """Plain scaled dot-product attention and its row logsumexp:

@@ -129,12 +129,15 @@ class MaskDecoder(nn.Module):
         return out_logits, out_iou
 
     def forward(self, image_embeddings, image_pe, sparse, dense,
-                multimask_output: bool, high_res_features=None):
+                multimask_output: bool, high_res_features=None,
+                training: bool = False):
+        """training=True turns off the dynamic-stability swap of the single
+        mask output (SAM 2 applies it only when not training)."""
         masks, iou_pred, mask_tokens_out, obj_logits = self.predict_masks(
             image_embeddings, image_pe, sparse, dense, high_res_features)
         if multimask_output:
             out_masks, out_iou = masks[:, 1:], iou_pred[:, 1:]
-        elif self.dynamic_multimask_via_stability:
+        elif self.dynamic_multimask_via_stability and not training:
             out_masks, out_iou = self._dynamic_multimask(masks, iou_pred)
         else:
             out_masks, out_iou = masks[:, 0:1], iou_pred[:, 0:1]

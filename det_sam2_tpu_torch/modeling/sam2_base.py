@@ -14,6 +14,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from det_sam2_tpu_torch.configs import SAM2Config
 from det_sam2_tpu_torch.modeling.image_encoder import ImageEncoder
@@ -121,11 +122,29 @@ class SAM2Model(nn.Module):
     # image features
     # ------------------------------------------------------------------
 
-    def forward_image(self, img: torch.Tensor):
+    def forward_image(self, img: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      remat: Optional[bool] = None):
         """img [B, H, W, 3] (uint8 raw or normalised float) -> (feat_s0
         [B, 4s, 4s, C/8], feat_s1 [B, 2s, 2s, C/4], feat [B, s, s, C]) with
-        the SAM decoder's high-res convs applied."""
-        fpn = self.image_encoder(img)
+        the SAM decoder's high-res convs applied.
+
+        generator: draws the trunk's drop-path masks (training; None =
+        inference, which never draws). remat (default
+        cfg.remat_image_encoder): run the encoder under
+        torch.utils.checkpoint, the counterpart of the JAX package's
+        nn.remat(ImageEncoder). The masks are drawn here, before the
+        checkpointed call, and passed in, so the recomputation in the
+        backward uses the same ones."""
+        keep = None
+        if generator is not None:
+            keep = self.image_encoder.trunk.draw_drop_path(img.shape[0], generator,
+                                                           img.device)
+        remat = self.cfg.remat_image_encoder if remat is None else remat
+        if remat and torch.is_grad_enabled():
+            fpn = checkpoint(self.image_encoder, img, keep, use_reentrant=False)
+        else:
+            fpn = self.image_encoder(img, keep)
         if self.cfg.use_high_res_features_in_sam:
             dec = self.sam_mask_decoder
             return (conv_nhwc(dec.conv_s0, fpn[0]), conv_nhwc(dec.conv_s1, fpn[1]),
@@ -139,11 +158,14 @@ class SAM2Model(nn.Module):
     def forward_sam_heads(self, backbone_features, point_coords=None,
                           point_labels=None, mask_inputs=None,
                           high_res_features: Optional[List[torch.Tensor]] = None,
-                          multimask_output: bool = False, gate_no_obj: bool = True):
+                          multimask_output: bool = False, gate_no_obj: bool = True,
+                          training: bool = False):
         """-> (low_res_multimasks [B, M, s4, s4], high_res_multimasks
         [B, M, H, W], ious [B, M], low_res_masks [B, 1, s4, s4],
         high_res_masks [B, 1, H, W], obj_ptr [B, C], object_score_logits
-        [B, 1]); mask logits fp32."""
+        [B, 1]); mask logits fp32. training=True turns off the decoder's
+        dynamic-stability multimask swap (SAM 2 gates it on
+        ``not self.training``)."""
         c = self.cfg
         b = backbone_features.shape[0]
         dev = backbone_features.device
@@ -164,7 +186,7 @@ class SAM2Model(nn.Module):
         dense_pe = self.sam_prompt_encoder.get_dense_pe()
         low_res_multimasks, ious, sam_tokens, obj_logits = self.sam_mask_decoder(
             backbone_features, dense_pe, sparse, dense, multimask_output,
-            high_res_features,
+            high_res_features, training=training,
         )
         low_res_multimasks = low_res_multimasks.float()
         if c.pred_obj_scores and gate_no_obj:
@@ -195,6 +217,42 @@ class SAM2Model(nn.Module):
                 obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr
         return (low_res_multimasks, high_res_multimasks, ious, low_res_masks,
                 high_res_masks, obj_ptr, obj_logits)
+
+    def use_mask_as_output(self, backbone_features,
+                           high_res_features: Optional[List[torch.Tensor]],
+                           mask_inputs: torch.Tensor):
+        """The input mask [B, H, W, 1] as the output, bypassing the SAM
+        heads' masks (SAM 2's _use_mask_as_output): +-10 logits, an
+        antialiased 1/4 low-res copy, the object pointer from the SAM heads
+        on the 4x-downsampled mask, and the object score from occupancy.
+        Returns the 7-tuple of ``forward_sam_heads``."""
+        c = self.cfg
+        out_scale, out_bias = 20.0, -10.0
+        mask_f = mask_inputs.float()
+        high_res_masks = (mask_f * out_scale + out_bias)[..., 0][:, None]  # [B,1,H,W]
+        low_res_masks = resize_bilinear(
+            high_res_masks,
+            (high_res_masks.shape[-2] // 4, high_res_masks.shape[-1] // 4),
+            antialias=True,
+        )
+        b = mask_inputs.shape[0]
+        ious = mask_f.new_ones(b, 1)
+        if not c.use_obj_ptrs_in_encoder:
+            obj_ptr = mask_f.new_zeros(b, c.hidden_dim)
+        else:
+            w = self.mask_downsample.weight
+            small = conv_nhwc(self.mask_downsample, mask_inputs.to(w.dtype))
+            obj_ptr = self.forward_sam_heads(backbone_features, mask_inputs=small,
+                                             high_res_features=high_res_features)[5]
+        lam = (mask_f.reshape(b, -1) > 0.0).any(1)[:, None].float()
+        object_score_logits = out_scale * lam + out_bias
+        if c.pred_obj_scores:
+            if c.fixed_no_obj_ptr:
+                obj_ptr = lam * obj_ptr
+            if c.use_obj_ptrs_in_encoder:
+                obj_ptr = obj_ptr + (1.0 - lam) * self.no_obj_ptr
+        return (low_res_masks, high_res_masks, ious, low_res_masks, high_res_masks,
+                obj_ptr, object_score_logits)
 
     # ------------------------------------------------------------------
     # memory

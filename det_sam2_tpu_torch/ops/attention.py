@@ -1,4 +1,4 @@
-"""Flash attention for the H100: the two forward kernels of the main path.
+"""Flash attention for the H100: forward, backward and banked kernels.
 
 Counterpart of the JAX package's ``ops/attention.py``, whose Pallas TPU
 kernels become hand-written CUDA C++ for Hopper (sm_90a):
@@ -7,6 +7,14 @@ kernels become hand-written CUDA C++ for Hopper (sm_90a):
       replaces ``_flash_kernel`` / ``_flash_kernel_nobias`` (``_flash_call``)
   K2  ``flash_attention_banked_fwd`` csrc/flash_banked_fwd.cu
       replaces ``_flash_banked_kernel`` (``_flash_banked_call``)
+  K3a ``flash_bwd_dq``               csrc/flash_bwd_dq.cu
+      replaces ``_flash_bwd_dq_kernel`` / ``_nobias`` (``_flash_bwd_call``)
+  K3b ``flash_bwd_dkv``              csrc/flash_bwd_dkv.cu
+      replaces ``_flash_bwd_dkv_kernel`` / ``_nobias`` (``_flash_bwd_call``)
+
+K1 with K3a/K3b as its backward is the autograd Function ``FlashAttention``
+(the counterpart of ``_flash_core`` and its custom VJP); K2 is inference
+only and refuses a gradient, as in JAX.
 
 Beside each kernel is its plain PyTorch version (``*_ref``) with the same
 signature. A wrapper given CPU tensors computes the plain version; given
@@ -22,6 +30,7 @@ ctypes. ``build_kernels()`` compiles every source at once, in parallel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -32,7 +41,8 @@ import torch
 
 from det_sam2_tpu_torch.modeling.layers import sdpa, sdpa_lse
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_banked_fwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_banked_fwd": 0,
+                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -48,6 +58,11 @@ _ARGTYPES = {
     # q, mem_k, mem_v, slots, w, bias, cos, sin, out,
     # nb, nq, d, cm, ktot, nl, s, ntile, layer, dtype, scale, stream
     "flash_banked_fwd": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # q, k, v, bias, dout, lse, delta, dq, bh, nq, nk, d, dv, dtype, scale,
+    # fault, stream
+    "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # ... dk, dv in place of dq
+    "flash_bwd_dkv": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -204,18 +219,169 @@ def flash_attention_fwd(
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# K3a / K3b: flash backward. Replace det_sam2_tpu/ops/attention.py:
+# _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (with their _nobias forms).
+# Bound by operations (2 * Nq * Nk * (2D + Dv) and 2 * Nq * Nk * (2D + 2Dv)
+# FLOPs over the live keys); the kernels recompute P from the saved lse one
+# key tile (K3a) or query tile (K3b) at a time, so neither the scores nor P
+# ever reach device memory (csrc/flash_bwd_dq.cu, flash_bwd_dkv.cu say more).
+# ---------------------------------------------------------------------------
+
+# planted faults of the backward kernels (csrc/flash_common.cuh BwdFault),
+# for the checks that must catch them; production calls pass 0
+BWD_FAULTS = {"dq without the delta term": 1, "a live key tile skipped": 2,
+              "P not zeroed where lse <= -1e29": 3, "dv from the wrong tile": 4}
+
+
+def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout):
+    """Plain version of K3a + K3b with the TPU kernels' arithmetic: P is
+    recomputed from the saved lse, and is 0 where lse <= -1e29 (``_safe_p``);
+    dS = P * (dO v^T - delta) with delta = rowsum(dO * O) and dO in fp32;
+    dS is rounded to k's type before dq = dS k / sqrt(D) and to q's type
+    before dk = dS^T q / sqrt(D); dv = P^T dO on fp32 P and dO. Shapes of
+    ``flash_attention_ref``; dout [BH, Nq, Dv] -> (dq, dk, dv) in the types
+    of q, k, v. Computed in slices of the BH axis so that the [Nq, Nk]
+    intermediates stay near 512 MB."""
+    return _bwd_ref(q, k, v, bias, lse, dout, (dout.float() * out.float()).sum(-1))
+
+
+def _bwd_ref(q, k, v, bias, lse, dout, delta):
+    """``flash_attention_bwd_ref`` given delta [BH, Nq] in place of out."""
+    bh, nq, d = q.shape
+    nk = k.shape[1]
+    scale = 1.0 / d ** 0.5
+    step = max(1, (1 << 27) // max(1, nq * nk))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for i in range(0, bh, step):
+        sl = slice(i, i + step)
+        g = dout[sl].float()
+        s = torch.matmul(q[sl].float(), k[sl].float().transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[sl].float()[:, None, :]
+        l = lse[sl].float()[..., None]
+        p = torch.where(l > -1e29, torch.exp(s - l), torch.zeros_like(s))
+        ds = p * (torch.matmul(g, v[sl].float().transpose(-1, -2))
+                  - delta[sl].float()[..., None])
+        dq[sl] = (torch.matmul(ds.to(k.dtype).float(), k[sl].float()) * scale).to(q.dtype)
+        dk[sl] = (torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q[sl].float())
+                  * scale).to(k.dtype)
+        dv[sl] = torch.matmul(p.transpose(-1, -2), g).to(v.dtype)
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, bias, dout, lse, delta):
+    """Checked kernel operands of K3a / K3b on CUDA tensors."""
+    bh, nq, d = q.shape
+    nk, dv = k.shape[1], v.shape[-1]
+    if k.shape != (bh, nk, d) or v.shape != (bh, nk, dv) or dout.shape != (bh, nq, dv):
+        raise ValueError(f"shapes q {q.shape} k {k.shape} v {v.shape} dout {dout.shape}")
+    if lse.shape != (bh, nq) or delta.shape != (bh, nq):
+        raise ValueError(f"lse {tuple(lse.shape)} delta {tuple(delta.shape)} != {(bh, nq)}")
+    _check_dims(d, dv)
+    dev = q.device
+    q, k, v = (_ready(t, q.dtype, dev) for t in (q, k, v))
+    dout, lse, delta = (_ready(t.float(), torch.float32, dev) for t in (dout, lse, delta))
+    if bias is not None:
+        if bias.shape != (bh, nk):
+            raise ValueError(f"bias {tuple(bias.shape)} != {(bh, nk)}")
+        bias = _ready(bias.float(), torch.float32, dev)
+    ptrs = [t.data_ptr() for t in (q, k, v)] + [
+        None if bias is None else bias.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+    return ptrs, (bh, nq, nk, d, dv, _dtype_code(q), 1.0 / d ** 0.5), (q, k, v, dout)
+
+
+def flash_bwd_dq(q, k, v, bias, dout, lse, delta, fault: int = 0) -> torch.Tensor:
+    """K3a on CUDA tensors: dq [BH, Nq, D] in q's type, from the shapes of
+    ``flash_attention_ref`` plus dout [BH, Nq, Dv] and lse, delta [BH, Nq]
+    fp32 (delta = rowsum(dO * O)). CPU tensors take the plain version;
+    CUDA tensors launch csrc/flash_bwd_dq.cu (fault: a planted fault of
+    ``BWD_FAULTS``, for the checks only)."""
+    if not q.is_cuda:
+        return _bwd_ref(q, k, v, bias, lse, dout, delta)[0]
+    ptrs, dims, keep = _bwd_args(q, k, v, bias, dout, lse, delta)
+    dq = torch.empty_like(keep[0])
+    _launch("flash_bwd_dq", *ptrs, dq.data_ptr(), *dims, fault,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, bias, dout, lse, delta,
+                  fault: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b on CUDA tensors, the arguments of ``flash_bwd_dq``: (dk
+    [BH, Nk, D], dv [BH, Nk, Dv]) in k's and v's type. CPU tensors take
+    the plain version; CUDA tensors launch csrc/flash_bwd_dkv.cu."""
+    if not q.is_cuda:
+        return _bwd_ref(q, k, v, bias, lse, dout, delta)[1:]
+    ptrs, dims, keep = _bwd_args(q, k, v, bias, dout, lse, delta)
+    dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
+    _launch("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, fault,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, bias, out, lse, dout):
+    """The backward of K1: (dq, dk, dv). CPU tensors take
+    ``flash_attention_bwd_ref``; CUDA tensors compute delta = rowsum(dO * O)
+    in fp32 with torch (the JAX package does it in XLA outside its kernels,
+    attention.py:325), then launch K3a and K3b."""
+    if not q.is_cuda:
+        return flash_attention_bwd_ref(q, k, v, bias, out, lse, dout)
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = flash_bwd_dq(q, k, v, bias, dout, lse, delta)
+    dk, dv = flash_bwd_dkv(q, k, v, bias, dout, lse, delta)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with K3a/K3b as its backward: the counterpart of the JAX package's
+    ``_flash_core`` and its custom VJP. apply(q, k, v, bias, plain) on
+    [BH, N, D] operands (bias [BH, Nk] fp32 or None) -> out [BH, Nq, Dv].
+
+    CPU tensors, or plain=True on any device, compute the plain forward
+    (``flash_attention_ref``) and the plain backward
+    (``flash_attention_bwd_ref``), so every device takes this same autograd
+    route. The bias gets NO gradient, as in JAX (attention.py:431-437):
+    every bias that reaches the kernel is a constant validity mask
+    (0 / -1e30 from memory attention), never a learned tensor; a learned
+    bias would need the backward kernels extended first."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, plain: bool):
+        if plain:
+            out, lse = flash_attention_ref(q, k, v, bias)
+        else:
+            out, lse = flash_attention_fwd(q, k, v, bias)
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        if ctx.plain:
+            dq, dk, dv = flash_attention_bwd_ref(q, k, v, bias, out, lse, dout)
+        else:
+            dq, dk, dv = flash_attention_bwd(q, k, v, bias, out, lse, dout)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     min_flops: int = 1 << 22,
+    plain: bool = False,
 ) -> torch.Tensor:
     """Drop-in for ``layers.sdpa`` on q [B, H, Nq, D], k [B, H, Nk, D],
     v [B, H, Nk, Dv], bias None or [B, 1, 1, Nk].
 
     The JAX dispatch rule is a rule of this function on every device, not a
     fallback: a problem with Nq * Nk < min_flops, or a bias of any other
-    form, goes to the plain ``sdpa``; everything else goes to K1 (which on
-    CPU tensors is its plain version)."""
+    form, goes to the plain ``sdpa``; everything else goes through
+    ``FlashAttention`` (K1 forward, K3a/K3b backward; on CPU tensors, or
+    with plain=True, their plain versions). The bias gets no gradient on
+    that route, as in JAX: it must be a constant mask."""
     b, h, nq, d = q.shape
     nk, dv = k.shape[2], v.shape[-1]
     bias_ok = bias is None or (
@@ -227,8 +393,8 @@ def flash_attention(
     if bias is not None:
         bf = bias[:, 0, 0, :].float()[:, None, :].expand(b, h, nk)
         bf = bf.reshape(b * h, nk)
-    out, _ = flash_attention_fwd(q.reshape(b * h, nq, d), k.reshape(b * h, nk, d),
-                                 v.reshape(b * h, nk, dv), bf)
+    out = FlashAttention.apply(q.reshape(b * h, nq, d), k.reshape(b * h, nk, d),
+                               v.reshape(b * h, nk, dv), bf, plain)
     return out.reshape(b, h, nq, dv)
 
 
@@ -308,23 +474,54 @@ def flash_attention_banked_fwd(q, mem_k, mem_v, slots, w, bias, cos, sin,
     return out
 
 
+class _BankedInferenceOnly(torch.autograd.Function):
+    """Identity gate on K2's output whose backward raises: the counterpart
+    of the JAX package's ``_banked_inference_only``. K2 reads K/V from
+    bank-resident caches and has no backward kernel, so a training path
+    handed a banked bank fails here with a message instead of training with
+    a silently dropped gradient. apply(out, *inputs): the differentiable
+    inputs make the output require a gradient on every device (the kernel's
+    own output has no autograd history)."""
+
+    @staticmethod
+    def forward(ctx, out, *inputs):
+        return out.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "flash_attention_banked is inference-only (no VJP): banked-mode "
+            "memory cross-attention reads K/V from bank-resident caches. For "
+            "training/finetuning, assemble memory densely — build the bank "
+            "with banked_layers=0 (init_bank default) so MemoryAttention takes "
+            "the differentiable gather path (see make_train_step)."
+        )
+
+
 def flash_attention_banked(q, mem_k, mem_v, slots, w, bias, cos, sin,
-                           layer: int) -> torch.Tensor:
+                           layer: int, plain: bool = False) -> torch.Tensor:
     """Bank-indirect memory cross-attention with the JAX signature:
     q [B, 1, Nq, D] (single head) -> [B, 1, Nq, Cm] raw-value output (the
-    caller applies v_proj / out_proj). Inference only."""
+    caller applies v_proj / out_proj). plain=True computes K2's plain
+    version on any device.
+
+    Inference only, on every device: differentiating the output raises
+    NotImplementedError, as in JAX. Training assembles memory densely (the
+    gather path, K1 with a bias)."""
     if q.shape[1] != 1:
         raise ValueError("banked attention is single-head")
-    return flash_attention_banked_fwd(q[:, 0], mem_k, mem_v, slots, w, bias,
-                                      cos, sin, layer)[:, None]
+    fn = flash_attention_banked_ref if plain else flash_attention_banked_fwd
+    out = fn(q[:, 0], mem_k, mem_v, slots, w, bias, cos, sin, layer)
+    diff = [t for t in (q, mem_k, mem_v, w) if t.requires_grad]
+    if torch.is_grad_enabled() and diff:
+        out = _BankedInferenceOnly.apply(out, *diff)
+    return out[:, None]
 
 
 def plain_attention_fns():
     """(attention_fn, banked_attention_fn) computing every kernel's plain
-    version on any device, for the reference run of a session. K1's plain
-    version under the dispatch rule is ``sdpa`` itself."""
-    def banked(q, mem_k, mem_v, slots, w, bias, cos, sin, layer):
-        return flash_attention_banked_ref(q[:, 0], mem_k, mem_v, slots, w, bias,
-                                          cos, sin, layer)[:, None]
-
-    return sdpa, banked
+    version on any device, for the reference run of a session: the same
+    dispatch rule and autograd route as the kernels (K1's plain version
+    under the rule, forward and backward; K2's, inference only)."""
+    return (functools.partial(flash_attention, plain=True),
+            functools.partial(flash_attention_banked, plain=True))

@@ -1,4 +1,4 @@
-"""K1 / K2 CUDA kernels against their plain PyTorch versions, on the card.
+"""K1 / K2 / K3a / K3b CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -115,3 +115,47 @@ def test_dispatch_rule_launches_k1_on_cuda(dev):
     _assert_held(out, ref)
     att.flash_attention(q[:, :, :8], k, k)  # 8 * 2048 < 2^22
     assert att.LAUNCHES["flash_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_kernels_match_plain_on_cuda(dev, dtype):
+    """K3a / K3b against flash_attention_bwd_ref on the same inputs: Dv != D,
+    ragged Nq / Nk, a dead key range and a dead row (D = 40), and D = 56."""
+    dt = getattr(torch, dtype)
+    for bh, nq, nk, d, dv, dead in ((3, 100, 200, 40, 24, True), (2, 130, 90, 56, 56, False)):
+        q, k, v, do = (_rand(s, i).to(dev, dt) for i, s in enumerate(
+            [(bh, nq, d), (bh, nk, d), (bh, nk, dv), (bh, nq, dv)]))
+        bias = None
+        if dead:
+            bias = torch.zeros(bh, nk, device=dev)
+            bias[:, 64:128] = -1e30
+            bias[2] = -1e30
+        out, lse = att.flash_attention_ref(q, k, v, bias)
+        delta = (do.float() * out.float()).sum(-1)
+        before = dict(att.LAUNCHES)
+        dq = att.flash_bwd_dq(q, k, v, bias, do, lse, delta)
+        dk, dv_ = att.flash_bwd_dkv(q, k, v, bias, do, lse, delta)
+        assert att.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+        assert att.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+        refs = att.flash_attention_bwd_ref(q, k, v, bias, out, lse, do)
+        for got, ref in zip((dq, dk, dv_), refs):
+            assert bool(torch.isfinite(got).all())
+            _assert_held(got, ref)
+        if dead:
+            assert all(bool((g[2] == 0).all()) for g in (dq, dk, dv_))
+
+
+@pytest.mark.cuda
+def test_flash_function_backward_launches_k3_on_cuda(dev):
+    """Differentiating flash_attention on CUDA tensors goes through K1, K3a
+    and K3b (one launch each) and matches the plain route."""
+    q, k, v = (_rand((1, 2, 2048, 64), i).to(dev).requires_grad_() for i in range(3))
+    before = dict(att.LAUNCHES)
+    out = att.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert att.LAUNCHES[name] == before[name] + 1, name
+    ref = att.flash_attention(q, k, v, plain=True)
+    for got, want in zip(grads, torch.autograd.grad(ref, (q, k, v), torch.ones_like(ref))):
+        _assert_held(got, want)
