@@ -6,11 +6,13 @@ Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
 plain PyTorch version at the shapes the paths give it (serving: hiera-S,
 1024^2, 2 objects; training: hiera-b+, 1024^2, T = 8, 3 objects), in bf16
-and fp32 with TF32 off; times kernel, plain version and torch's
+and fp32 with TF32 off; K2's key pre-pass must equal its plain version bit
+for bit; times kernel, plain version and torch's
 scaled_dot_product_attention (forward for K1, backward for K3a / K3b) as a
-yardstick. Planted faults (a skipped key tile, a wrong slot, no RoPE
-correction, dq without the delta term, dv from the wrong tile, ...) must
-fail the same check.
+yardstick. Planted faults (a skipped key tile, the consumer reading the
+wrong ring stage, a wrong slot, no RoPE correction, the pre-pass leaving
+out one tile's correction, dq without the delta term, dv from the wrong
+tile, ...) must fail the same check.
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
@@ -68,6 +70,7 @@ MAX_ULPS = {torch.bfloat16: 4, torch.float32: 1024}
 MEAN_EPS = {torch.bfloat16: 0.4, torch.float32: 64}
 K1_SRC = "det_sam2_tpu_torch/csrc/flash_fwd.cu"
 K2_SRC = "det_sam2_tpu_torch/csrc/flash_banked_fwd.cu"
+K2_KEYS_SRC = "det_sam2_tpu_torch/csrc/flash_banked_keys.cu"
 K3A_SRC = "det_sam2_tpu_torch/csrc/flash_bwd_dq.cu"
 K3B_SRC = "det_sam2_tpu_torch/csrc/flash_bwd_dkv.cu"
 K1_TPU = "det_sam2_tpu/ops/attention.py:48"
@@ -139,6 +142,10 @@ def _k1_cases():
         ("ragged_edges", 3, 100, 200, 40, 24, [(0, 64, 128), (2, 0, 200)]),
         # training path: hiera-b+ global blocks, 8 frames x 8 heads, D = 56
         ("hiera_bplus_global", 64, 4096, 4096, 56, 56, None),
+        # training path: memory self- and cross-attention of 3 objects (the
+        # cross-attention's memory is all valid: a zero bias on every key)
+        ("memory_self_attn_train", 3, 4096, 4096, 256, 256, None),
+        ("memory_cross_attn_train", 3, 4096, 7 * s + 28, 256, 64, []),
     ]
 
 
@@ -147,7 +154,9 @@ def _k1_cases():
 K1_ROWS = {("hiera_global", torch.bfloat16): "serving",
            ("memory_self_attn", torch.bfloat16): "serving",
            ("gather_cross_attn", torch.bfloat16): "serving",
-           ("hiera_bplus_global", torch.float32): "training"}
+           ("hiera_bplus_global", torch.float32): "training",
+           ("memory_self_attn_train", torch.float32): "training",
+           ("memory_cross_attn_train", torch.float32): "training"}
 
 
 def _k3_cases():
@@ -279,8 +288,11 @@ def _k2_faults(slots, w, bias, s):
     wrong[2] = 38  # a bank row that is not attended
     staging = slots.clone()
     staging[-1] = 38  # the 64 pointer tokens read from another row
+    one_tile = w.clone()
+    one_tile[1] = 0.0  # the pre-pass builds tile 1's keys without its correction
     return [
         ("RoPE correction left out", slots, torch.zeros_like(w), bias),
+        ("pre-pass leaves out tile 1's correction", slots, one_tile, bias),
         ("wrong slot for one tile", wrong, w, bias),
         ("staging tile read from another row", staging, w, bias),
         ("one KV tile skipped", slots, w,
@@ -294,9 +306,37 @@ def _caught(kernel, label, fault, h) -> bool:
     return not h["good"]
 
 
+def host_us(fn, n: int = 200) -> float:
+    """Host time of one call of fn, enqueued back to back (no synchronise
+    inside the window): what a call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def host_cost(dev):
+    """The host time of K1's wrapper at a tiny shape: bf16 encodes three TMA
+    tensor maps a call, fp32 none; the difference is what the tensor maps
+    cost the host."""
+    from det_sam2_tpu_torch.ops import attention as att
+
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, bias = _k1_inputs(0, 3, 100, 200, 40, 24, dtype, [(0, 64, 128)], dev)
+        times[dtype] = host_us(lambda: att.flash_attention_fwd(q, k, v, bias))
+    log(f"[host] flash_fwd wrapper, host us a call at q[3, 100, 40]: bf16 (3 tensor maps "
+        f"encoded) {times[torch.bfloat16]:.2f}, fp32 (none) {times[torch.float32]:.2f}")
+
+
 def phase_kernels(dev, results):
     from det_sam2_tpu_torch.ops import attention as att
 
+    host_cost(dev)
     ok = True
     for i, (label, bh, nq, nk, d, dv, dead) in enumerate(_k1_cases()):
         for dtype in (torch.bfloat16, torch.float32):
@@ -317,6 +357,10 @@ def phase_kernels(dev, results):
                 for fault, ranges in K1_FAULTS.get(label, []):
                     bad, _ = att.flash_attention_fwd(
                         q, k, v, _kill(bias, (bh, nk), dev, ranges))
+                    ok &= _caught("flash_fwd", label, fault, _held(bad, ref, dtype))
+                    del bad
+                for fault, code in att.FWD_FAULTS.items():
+                    bad, _ = att.flash_attention_fwd(q, k, v, bias, fault=code)
                     ok &= _caught("flash_fwd", label, fault, _held(bad, ref, dtype))
                     del bad
             # the function needs the K/V rows of live keys only
@@ -356,12 +400,19 @@ def phase_kernels(dev, results):
             q, mem_k, mem_v, slots_t, w, bias, cos, sin, _ = args
             out = att.flash_attention_banked_fwd(*args)
             ref = att.flash_attention_banked_ref(*args)
+            # the pre-pass alone: its keys equal the plain version's bit for bit
+            s_pad = -(-s // att.K2_TILE) * att.K2_TILE
+            kargs = (mem_k, slots_t, w, cos, sin, layer, s_pad)
+            keys = att.flash_banked_keys(*kargs)
+            keys_ref = att.banked_keys(mem_k, slots_t, w, cos, sin, layer, dtype, s_pad)
             torch.cuda.synchronize()
+            keys_err = float((keys.float() - keys_ref.float()).abs().max())
             live_rows = (bias > -1e29).any(-1)
             h = _held(out, ref, dtype)
             err = h["err"]
             good = (bool(torch.isfinite(out).all())
-                    and bool((out[~live_rows] == 0).all()) and h["good"])
+                    and bool((out[~live_rows] == 0).all()) and h["good"]
+                    and bool(torch.equal(keys, keys_ref)))
             ok &= good
             if dtype == torch.bfloat16 and label == "banked_cross_attn":
                 for fault, f_slots, f_w, f_bias in _k2_faults(slots_t, w, bias, s):
@@ -375,24 +426,48 @@ def phase_kernels(dev, results):
             flops = 2.0 * nq * live_keys * (d + cm)
             rows = live_keys * (d + cm) * q.element_size()
             bnd, by = bound_ms(flops, nbytes(q, w, bias, cos, sin, out) + rows, dtype)
+            # main kernel alone on the pre-pass's keys (its bound needs the same
+            # rows, with the keys read once in place of the bank rows)
+            margs = (q, keys, mem_v, slots_t, bias)
+            b_main, by_main = bound_ms(flops, nbytes(q, bias, out) + rows, dtype)
+            # pre-pass: reads the attended bank rows, the tables and w once,
+            # writes the keys
+            attended = sum(1 for x in slots if 0 <= x < ktot)
+            kbytes = (attended * b * s * d * q.element_size() + nbytes(cos, sin, w, keys))
+            b_keys, by_keys = bound_ms(0.0, kbytes, dtype)
             iters = 20 if dtype == torch.bfloat16 else 3
             ms = time_ms(lambda: att.flash_attention_banked_fwd(*args), iters)
+            ms_main = time_ms(lambda: att.flash_banked_attend(*margs), iters)
+            ms_keys = time_ms(lambda: att.flash_banked_keys(*kargs), iters)
             plain = time_ms(lambda: att.flash_attention_banked_ref(*args), 3, 1)
+            plain_main = time_ms(lambda: att.flash_banked_attend_ref(*margs), 3, 1)
+            plain_keys = time_ms(lambda: att.banked_keys(
+                mem_k, slots_t, w, cos, sin, layer, dtype, s_pad), 3, 1)
             log(f"[kernels] flash_banked_fwd {label} {str(dtype)[6:]} q{list(q.shape)} "
                 f"mem_k{list(mem_k.shape)} mem_v{list(mem_v.shape)} slots{slots} "
-                f"layer {layer}: {_fmt(h)} ms {ms:.4f} "
-                f"plain_ms {plain:.4f} bound_ms {bnd:.4f} ({by}) "
+                f"layer {layer}: {_fmt(h)} pre-pass keys max_abs_err {keys_err:.3g} | "
+                f"K2 (pre-pass + main) ms {ms:.4f} plain_ms {plain:.4f} bound_ms "
+                f"{bnd:.4f} ({by}); main ms {ms_main:.4f} plain_ms {plain_main:.4f} "
+                f"bound_ms {b_main:.4f} ({by_main}); pre-pass ms {ms_keys:.4f} plain_ms "
+                f"{plain_keys:.4f} bound_ms {b_keys:.4f} ({by_keys}) "
                 f"{'OK' if good else 'FAIL'}")
             if dtype == torch.bfloat16 and label != "ragged_edges":
+                shape = dict(q=list(q.shape), mem_k=list(mem_k.shape),
+                             mem_v=list(mem_v.shape), slots=len(slots),
+                             keys=list(keys.shape))
                 results.append(dict(
                     name=f"flash_banked_fwd:{label}", route="cuda", source=K2_SRC,
                     replaces=K2_TPU, kernel="flash_banked_fwd", path="serving",
-                    dtype="bfloat16",
-                    shape=dict(q=list(q.shape), mem_k=list(mem_k.shape),
-                               mem_v=list(mem_v.shape), slots=len(slots)),
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, library_ms=None))
-            del args, q, mem_k, mem_v, out, ref
+                    dtype="bfloat16", shape=shape, max_abs_err=err, ms=ms_main,
+                    plain_ms=plain_main, bound_ms=b_main, bound_by=by_main,
+                    library_ms=None))
+                results.append(dict(
+                    name=f"flash_banked_keys:{label}", route="cuda", source=K2_KEYS_SRC,
+                    replaces=K2_TPU, kernel="flash_banked_keys", path="serving",
+                    dtype="bfloat16", shape=shape, max_abs_err=keys_err, ms=ms_keys,
+                    plain_ms=plain_keys, bound_ms=b_keys, bound_by=by_keys,
+                    library_ms=None))
+            del args, margs, kargs, q, mem_k, mem_v, out, ref, keys, keys_ref
             torch.cuda.empty_cache()
     return ok & phase_backward_kernels(dev, results)
 
@@ -637,11 +712,12 @@ def phase_main(dev):
         f"peak_mem {peak / 2 ** 30:.3f} GiB")
     log(f"[main] launches in the session: {launches}; per stream_step: {per_frame} "
         f"(expected flash_fwd 7 = 3 Hiera global + 4 memory self-attn, "
-        f"flash_banked_fwd 4 = memory cross-attn)")
+        f"flash_banked_keys 4 + flash_banked_fwd 4 = memory cross-attn)")
     log(f"[main] object scores at the last step "
         f"{outs[-1]['object_score_logits'].flatten().tolist()}, foreground share "
         f"per step min {min(fg):.4f} max {max(fg):.4f}")
-    if per_frame["flash_fwd"] != 7 or per_frame["flash_banked_fwd"] != 4:
+    if (per_frame["flash_fwd"] != 7 or per_frame["flash_banked_fwd"] != 4
+            or per_frame["flash_banked_keys"] != 4):
         log("[main] unexpected launch counts per frame")
         ok = False
     return ok, launches, (eng, frames, outs[:N_CHECK])
@@ -1141,7 +1217,8 @@ def main() -> int:
     counts = {"serving": serving, "training": training}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
-    for path, names in (("serving", ("flash_fwd", "flash_banked_fwd")),
+    serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
+    for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
         for name in names:
             if counts[path][name] <= 0:

@@ -5,7 +5,8 @@ kernels become hand-written CUDA C++ for Hopper (sm_90a):
 
   K1  ``flash_attention_fwd``        csrc/flash_fwd.cu
       replaces ``_flash_kernel`` / ``_flash_kernel_nobias`` (``_flash_call``)
-  K2  ``flash_attention_banked_fwd`` csrc/flash_banked_fwd.cu
+  K2  ``flash_attention_banked_fwd`` csrc/flash_banked_keys.cu (pre-pass)
+                                     + csrc/flash_banked_fwd.cu
       replaces ``_flash_banked_kernel`` (``_flash_banked_call``)
   K3a ``flash_bwd_dq``               csrc/flash_bwd_dq.cu
       replaces ``_flash_bwd_dq_kernel`` / ``_nobias`` (``_flash_bwd_call``)
@@ -41,8 +42,9 @@ import torch
 
 from det_sam2_tpu_torch.modeling.layers import sdpa, sdpa_lse
 
-LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_banked_fwd": 0,
-                             "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_banked_keys": 0,
+                             "flash_banked_fwd": 0, "flash_bwd_dq": 0,
+                             "flash_bwd_dkv": 0}
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,11 +55,14 @@ NVCC_FLAGS = (
 )
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = {
-    # q, k, v, bias, out, lse, bh, nq, nk, d, dv, dtype, scale, stream
-    "flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _P],
-    # q, mem_k, mem_v, slots, w, bias, cos, sin, out,
-    # nb, nq, d, cm, ktot, nl, s, ntile, layer, dtype, scale, stream
-    "flash_banked_fwd": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # q, k, v, bias, out, lse, bh, nq, nk, d, dv, dtype, scale, fault, stream
+    "flash_fwd": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
+    # mem_k, slots, w, cos, sin, keys,
+    # nb, d, ktot, nl, s, s_pad, ntile, layer, dtype, stream
+    "flash_banked_keys": [_P] * 6 + [_I] * 9 + [_P],
+    # q, keys, mem_v, slots, bias, out,
+    # nb, nq, d, cm, ktot, s, s_pad, ntile, dtype, scale, stream
+    "flash_banked_fwd": [_P] * 6 + [_I] * 9 + [_F, _P],
     # q, k, v, bias, dout, lse, delta, dq, bh, nq, nk, d, dv, dtype, scale,
     # fault, stream
     "flash_bwd_dq": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
@@ -155,10 +160,18 @@ def _ready(t: torch.Tensor, dtype: torch.dtype, device) -> torch.Tensor:
     return t
 
 
+# the C entries' own error codes beside CUDA's (csrc/flash_common.cuh kErr*)
+_ERRORS = {20000: "no driver entry point for cuTensorMapEncodeTiled",
+           20001: "the tiles of this shape do not fit in shared memory"}
+
+
 def _launch(name: str, *args) -> None:
     err = getattr(_lib(name), name)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        what = _ERRORS.get(err, f"CUDA error {err}")
+        if 10000 <= err < 20000:
+            what = f"tensor map not encoded: CUresult {err - 10000}"
+        raise RuntimeError(f"{name} launch failed: {what}")
     LAUNCHES[name] += 1
 
 
@@ -173,9 +186,14 @@ def _check_dims(d: int, dv: int) -> None:
 # K1: flash forward. Replaces det_sam2_tpu/ops/attention.py:_flash_kernel and
 # _flash_kernel_nobias. Bound on the H100 by operations at the main path's
 # shapes (2 * Nq * Nk * (D + Dv) FLOPs on a few MB); the kernel keeps scores,
-# P and the output accumulator on chip, one pass over K/V per 64 query rows,
-# on the tensor cores in bf16 (csrc/flash_fwd.cu says more).
+# P and the output accumulator on chip, one pass over the live K/V tiles per
+# 64 query rows: in bf16 a TMA ring feeding wgmma, in fp32 exact FMAs over a
+# cp.async double buffer (csrc/flash_fwd.cu, flash_common.cuh say more).
 # ---------------------------------------------------------------------------
+
+# planted faults of the forward kernels (csrc/flash_common.cuh FwdFault), for
+# the checks that must catch them; production calls pass 0
+FWD_FAULTS = {"consumer reads the wrong ring stage": 1}
 
 
 def flash_attention_ref(
@@ -190,11 +208,12 @@ def flash_attention_ref(
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None, fault: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on [BH, N, D] operands (the shapes of the TPU ``_flash_call``):
     (out [BH, Nq, Dv] in q's type, lse [BH, Nq] fp32). CPU tensors take
-    ``flash_attention_ref``; CUDA tensors launch csrc/flash_fwd.cu."""
+    ``flash_attention_ref``; CUDA tensors launch csrc/flash_fwd.cu (fault: a
+    planted fault of ``FWD_FAULTS``, for the checks only)."""
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, bias)
     bh, nq, d = q.shape
@@ -213,7 +232,7 @@ def flash_attention_fwd(
     _launch(
         "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, nq, nk, d, dv, code, 1.0 / d ** 0.5,
+        lse.data_ptr(), bh, nq, nk, d, dv, code, 1.0 / d ** 0.5, fault,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out, lse
@@ -401,24 +420,126 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 # K2: bank-indirect memory cross-attention forward. Replaces
 # det_sam2_tpu/ops/attention.py:_flash_banked_kernel. Bound by operations as
-# K1; the kernel reads K/V straight from the bank rows named by the slot list
-# (no gathered copy in device memory) and adds the per-tile RoPE correction
-# in fp32 while staging K (csrc/flash_banked_fwd.cu says more).
+# K1. A pre-pass builds the corrected keys of the attended tiles once a launch
+# (csrc/flash_banked_keys.cu: bytes, ~34 MB each way at the serving shape);
+# the main kernel runs K1's body over them and reads V straight from the bank
+# rows named by the slot list (csrc/flash_banked_fwd.cu says more).
 # ---------------------------------------------------------------------------
 
+K2_TILE = 64  # keys a tile of K2's main kernel: each bank tile is padded to it
 
-def banked_keys(mem_k, slots, w, cos, sin, layer: int, dtype) -> torch.Tensor:
-    """The keys K2 reads: [B, T*S, D] = mem_k[slots, :, layer] plus the
-    per-tile RoPE correction [w1*cos - w2*sin, w1*sin + w2*cos] (halves
-    layout), added in fp32 and rounded to `dtype`."""
-    half = w.shape[-1] // 2
+
+def _slot_rows(slots: torch.Tensor, ktot: int):
+    """(valid [T] bool: slot in [0, Ktot), the slots with invalid ones set to
+    row 0) of a slot list."""
+    sl = slots.long()
+    valid = (sl >= 0) & (sl < ktot)
+    return valid, torch.where(valid, sl, torch.zeros_like(sl))
+
+
+def banked_keys(mem_k, slots, w, cos, sin, layer: int, dtype,
+                s_pad: Optional[int] = None) -> torch.Tensor:
+    """The keys K2 attends to, [B, T*S_pad, D]: rows j < S of tile t are
+    mem_k[slots[t], :, layer, j] plus the per-tile RoPE correction
+    [w1*cos - w2*sin, w1*sin + w2*cos] (halves layout), added in fp32 and
+    rounded to `dtype`; rows S..S_pad, and every row of a tile whose slot is
+    outside [0, Ktot), are zeros. S_pad defaults to S. The plain version of
+    K2's pre-pass (``flash_banked_keys``)."""
+    ktot, _, _, s, d = mem_k.shape
+    s_pad = s if s_pad is None else s_pad
+    valid, rows = _slot_rows(slots, ktot)
+    half = d // 2
     w1 = w[:, None, :half].float()
     w2 = w[:, None, half:].float()
     corr = torch.cat([cos * w1 - sin * w2, sin * w1 + cos * w2], -1)  # [T,S,D]
-    k = mem_k.index_select(0, slots.long())[:, :, layer]  # [T, B, S, D]
+    k = mem_k.index_select(0, rows)[:, :, layer]  # [T, B, S, D]
     k = (k.float() + corr[:, None]).to(dtype)
-    t, b, s, d = k.shape
-    return k.permute(1, 0, 2, 3).reshape(b, t * s, d)
+    t, b = k.shape[:2]
+    out = k.new_zeros((t, b, s_pad, d))
+    out[:, :, :s] = k.masked_fill(~valid[:, None, None, None], 0)
+    return out.permute(1, 0, 2, 3).reshape(b, t * s_pad, d)
+
+
+def flash_banked_keys(mem_k, slots, w, cos, sin, layer: int,
+                      s_pad: Optional[int] = None) -> torch.Tensor:
+    """K2's pre-pass: ``banked_keys`` in mem_k's type, [B, T*S_pad, D].
+    CPU tensors take the plain version; CUDA tensors launch
+    csrc/flash_banked_keys.cu."""
+    ktot, b, nl, s, d = mem_k.shape
+    s_pad = s if s_pad is None else s_pad
+    if not mem_k.is_cuda:
+        return banked_keys(mem_k, slots, w, cos, sin, layer, mem_k.dtype, s_pad)
+    t = slots.shape[0]
+    if w.shape != (t, d) or cos.shape != (s, d // 2) or sin.shape != (s, d // 2):
+        raise ValueError(f"w {tuple(w.shape)} rope tables {tuple(cos.shape)} "
+                         f"{tuple(sin.shape)}")
+    if not 0 <= layer < nl:
+        raise ValueError(f"layer {layer} not in [0, {nl})")
+    if d % 16 or s_pad < s:
+        raise ValueError(f"K2 takes D a multiple of 16 and S_pad >= S, got {d}, {s_pad}")
+    code = _dtype_code(mem_k)
+    dev = mem_k.device
+    mem_k = _ready(mem_k, mem_k.dtype, dev)
+    slots = _ready(slots.to(torch.int32), torch.int32, dev)
+    w, cos, sin = (_ready(x.float(), torch.float32, dev) for x in (w, cos, sin))
+    keys = torch.empty((b, t * s_pad, d), dtype=mem_k.dtype, device=dev)
+    _launch(
+        "flash_banked_keys", mem_k.data_ptr(), slots.data_ptr(), w.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), keys.data_ptr(), b, d, ktot, nl, s, s_pad,
+        t, layer, code, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return keys
+
+
+def flash_banked_attend_ref(q, keys, mem_v, slots, bias) -> torch.Tensor:
+    """Plain version of K2's main kernel: attention of q [B, Nq, D] over
+    the keys [B, T*S_pad, D] of ``banked_keys`` and the values
+    mem_v[slots[t], b] [Ktot, B, S, Cm] of each tile, with bias [B, T*S]
+    fp32; keys S..S_pad of a tile and every key of a slot outside [0, Ktot)
+    are dead -> [B, Nq, Cm]."""
+    b = q.shape[0]
+    ktot, _, s, cm = mem_v.shape
+    t = slots.shape[0]
+    s_pad = keys.shape[1] // t
+    valid, rows = _slot_rows(slots, ktot)
+    v = mem_v.new_zeros((t, b, s_pad, cm))
+    v[:, :, :s] = mem_v.index_select(0, rows)
+    v = v.permute(1, 0, 2, 3).reshape(b, t * s_pad, cm)
+    full = torch.full((b, t, s_pad), -1e30, dtype=torch.float32, device=q.device)
+    full[:, :, :s] = bias.float().reshape(b, t, s)
+    full = full.masked_fill(~valid[None, :, None], -1e30)
+    return sdpa(q, keys, v, full.reshape(b, 1, t * s_pad))
+
+
+def flash_banked_attend(q, keys, mem_v, slots, bias) -> torch.Tensor:
+    """K2's main kernel on the pre-pass's keys, with the shapes of
+    ``flash_banked_attend_ref`` (S_pad a multiple of ``K2_TILE``). CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/flash_banked_fwd.cu."""
+    if not q.is_cuda:
+        return flash_banked_attend_ref(q, keys, mem_v, slots, bias)
+    b, nq, d = q.shape
+    ktot, _, s, cm = mem_v.shape
+    t = slots.shape[0]
+    s_pad = keys.shape[1] // t
+    if (mem_v.shape[1] != b or keys.shape != (b, t * s_pad, d) or s_pad % K2_TILE
+            or s_pad < s or bias.shape != (b, t * s)):
+        raise ValueError(f"q {tuple(q.shape)} keys {tuple(keys.shape)} mem_v "
+                         f"{tuple(mem_v.shape)} bias {tuple(bias.shape)}")
+    _check_dims(d, cm)
+    code = _dtype_code(q)
+    dev = q.device
+    q, keys, mem_v = (_ready(x, q.dtype, dev) for x in (q, keys, mem_v))
+    slots = _ready(slots.to(torch.int32), torch.int32, dev)
+    bias = _ready(bias.float(), torch.float32, dev)
+    out = torch.empty((b, nq, cm), dtype=q.dtype, device=dev)
+    _launch(
+        "flash_banked_fwd", q.data_ptr(), keys.data_ptr(), mem_v.data_ptr(),
+        slots.data_ptr(), bias.data_ptr(), out.data_ptr(), b, nq, d, cm, ktot,
+        s, s_pad, t, code, 1.0 / d ** 0.5,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return out
 
 
 def flash_attention_banked_ref(q, mem_k, mem_v, slots, w, bias, cos, sin,
@@ -426,52 +547,29 @@ def flash_attention_banked_ref(q, mem_k, mem_v, slots, w, bias, cos, sin,
     """Plain version of K2: gather the slot rows, add the correction, then
     plain attention. q [B, Nq, D]; mem_k [Ktot, B, L, S, D];
     mem_v [Ktot, B, S, Cm]; slots [T] int32; w [T, D] fp32; bias [B, T*S]
-    fp32; cos/sin [S, D/2] fp32 -> [B, Nq, Cm]."""
-    k = banked_keys(mem_k, slots, w, cos, sin, layer, q.dtype)
-    v = mem_v.index_select(0, slots.long())  # [T, B, S, Cm]
-    t, b, s, cm = v.shape
-    v = v.permute(1, 0, 2, 3).reshape(b, t * s, cm)
-    return sdpa(q, k, v, bias.float()[:, None, :])
+    fp32; cos/sin [S, D/2] fp32 -> [B, Nq, Cm]. The keys of a slot outside
+    [0, Ktot) are dead."""
+    keys = banked_keys(mem_k, slots, w, cos, sin, layer, q.dtype)
+    return flash_banked_attend_ref(q, keys, mem_v, slots, bias)
 
 
 def flash_attention_banked_fwd(q, mem_k, mem_v, slots, w, bias, cos, sin,
                                layer: int) -> torch.Tensor:
     """K2 with the shapes of ``flash_attention_banked_ref``. CPU tensors
-    take the plain version; CUDA tensors launch csrc/flash_banked_fwd.cu.
-    Slots must name rows in [0, Ktot); the kernel reads an out-of-range slot
-    as a dead tile rather than out of bounds."""
+    take the plain version; CUDA tensors launch the pre-pass
+    (``flash_banked_keys``, each bank tile padded to ``K2_TILE`` keys) and
+    the main kernel over its keys (``flash_banked_attend``). A slot outside
+    [0, Ktot) is a dead tile."""
     if not q.is_cuda:
         return flash_attention_banked_ref(q, mem_k, mem_v, slots, w, bias,
                                           cos, sin, layer)
-    b, nq, d = q.shape
-    ktot, _, nl, s, _ = mem_k.shape
-    cm = mem_v.shape[-1]
-    t = slots.shape[0]
-    if mem_k.shape != (ktot, b, nl, s, d) or mem_v.shape != (ktot, b, s, cm):
-        raise ValueError(f"bank shapes mem_k {mem_k.shape} mem_v {mem_v.shape}")
-    if w.shape != (t, d) or bias.shape != (b, t * s):
-        raise ValueError(f"w {tuple(w.shape)} bias {tuple(bias.shape)}")
-    if cos.shape != (s, d // 2) or sin.shape != (s, d // 2):
-        raise ValueError(f"rope tables {tuple(cos.shape)} {tuple(sin.shape)}")
-    if not 0 <= layer < nl:
-        raise ValueError(f"layer {layer} not in [0, {nl})")
-    _check_dims(d, cm)
-    if d % 16:
-        raise ValueError(f"K2 takes D a multiple of 16, got {d}")
-    code = _dtype_code(q)
-    dev = q.device
-    q, mem_k, mem_v = (_ready(x, q.dtype, dev) for x in (q, mem_k, mem_v))
-    slots = _ready(slots.to(torch.int32), torch.int32, dev)
-    w, bias, cos, sin = (_ready(x.float(), torch.float32, dev)
-                         for x in (w, bias, cos, sin))
-    out = torch.empty((b, nq, cm), dtype=q.dtype, device=dev)
-    _launch(
-        "flash_banked_fwd", q.data_ptr(), mem_k.data_ptr(), mem_v.data_ptr(),
-        slots.data_ptr(), w.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), out.data_ptr(), b, nq, d, cm, ktot, nl, s, t, layer,
-        code, 1.0 / d ** 0.5, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    return out
+    if mem_k.dtype != q.dtype or mem_k.shape[1] != q.shape[0] or mem_k.shape[-1] != q.shape[-1]:
+        raise ValueError(f"q {q.dtype} {tuple(q.shape)} mem_k {mem_k.dtype} "
+                         f"{tuple(mem_k.shape)}")
+    s = mem_k.shape[3]
+    keys = flash_banked_keys(mem_k, slots, w, cos, sin, layer,
+                             -(-s // K2_TILE) * K2_TILE)
+    return flash_banked_attend(q, keys, mem_v, slots, bias)
 
 
 class _BankedInferenceOnly(torch.autograd.Function):

@@ -137,3 +137,68 @@ def test_k2_keys_are_the_corrected_bank_rows():
                            sin * w[0, :half] + cos * w[0, half:]], -1)
     np.testing.assert_allclose(k[:, :s].numpy(), mem_k[slots[0], :, layer] + corr,
                                atol=1e-6)
+    # the pre-pass's layout: each tile padded to S_pad rows of zeros, and a
+    # slot outside [0, Ktot) gives a zero tile
+    bad = slots.copy()
+    bad[2] = mem_k.shape[0] + 7
+    s_pad = s + 64
+    kp = att.flash_banked_keys(torch.from_numpy(mem_k), torch.from_numpy(bad),
+                               torch.from_numpy(w), torch.from_numpy(cos),
+                               torch.from_numpy(sin), layer, s_pad)
+    kp = kp.reshape(k.shape[0], len(slots), s_pad, -1).numpy()
+    assert np.all(kp[:, :, s:] == 0) and np.all(kp[:, 2] == 0)
+    np.testing.assert_array_equal(kp[:, 0, :s], k[:, :s].numpy())
+    np.testing.assert_array_equal(kp[:, 3, :s], k[:, 3 * s:].numpy())
+
+
+def _tpu_keys(mem_k, slots, w, cos, sin, layer, dtype):
+    """The keys the TPU kernel builds in-kernel (_flash_banked_kernel,
+    attention.py:477-488), with its own jnp expression: per tile t,
+    (k0 + [cos*w1 - sin*w2, sin*w1 + cos*w2]).astype(dtype)."""
+    half = w.shape[1] // 2
+    out = []
+    for t, slot in enumerate(slots):
+        k0 = jnp.asarray(mem_k[slot, :, layer]).astype(jnp.float32)  # [B, S, D]
+        w1, w2 = jnp.asarray(w[t:t + 1, :half]), jnp.asarray(w[t:t + 1, half:])
+        c, sn = jnp.asarray(cos), jnp.asarray(sin)
+        corr = jnp.concatenate([c * w1 - sn * w2, sn * w1 + c * w2], axis=-1)
+        out.append((k0 + corr[None]).astype(dtype))
+    return np.asarray(jnp.concatenate(out, axis=1).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_prepass_plain_matches_tpu_kernel_keys(dtype):
+    """K2's pre-pass (plain version) builds the keys the TPU kernel builds
+    in-kernel: fp32 to the rounding of the correction, bf16 to one ulp."""
+    q, mem_k, mem_v, slots, w, bias, cos, sin, layer = _k2_inputs(2)
+    mk = torch.from_numpy(mem_k).to(getattr(torch, dtype))
+    want = _tpu_keys(np.asarray(mk.float()), slots, w, cos, sin, layer,
+                     getattr(jnp, dtype))
+    got = att.flash_banked_keys(mk, torch.from_numpy(slots), torch.from_numpy(w),
+                                torch.from_numpy(cos), torch.from_numpy(sin), layer)
+    assert got.dtype == mk.dtype
+    rtol = 1e-6 if dtype == "float32" else 2.0 ** -8
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("pad", [0, 64])
+def test_k2_main_plain_matches_pallas_with_a_slot_out_of_range(pad):
+    """K2's main kernel (plain version) over the pre-pass's keys, padded to
+    S_pad, with slot 1 outside [0, Ktot): equal to the JAX kernel given a
+    valid slot and that tile's keys dead."""
+    q, mem_k, mem_v, slots, w, bias, cos, sin, layer = _k2_inputs(3)
+    s = cos.shape[0]
+    bad = slots.copy()
+    bad[1] = -1
+    dead = bias.copy()
+    dead[:, s:2 * s] = -1e30
+    want = jatt.flash_attention_banked(
+        *(jnp.asarray(a) for a in (q, mem_k, mem_v, slots, w, dead, cos, sin)),
+        layer, block_q=128, block_k=64)
+    t = lambda a: torch.from_numpy(a)  # noqa: E731
+    keys = att.flash_banked_keys(t(mem_k), t(bad), t(w), t(cos), t(sin), layer, s + pad)
+    got = att.flash_banked_attend(t(q[:, 0]), keys, t(mem_v), t(bad), t(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want)[:, 0], atol=ATOL)
+    whole = att.flash_attention_banked(*(t(a) for a in (q, mem_k, mem_v, bad, w, bias,
+                                                        cos, sin)), layer)
+    np.testing.assert_allclose(whole.numpy(), np.asarray(want), atol=ATOL)

@@ -1,4 +1,5 @@
-"""K1 / K2 / K3a / K3b CUDA kernels against their plain PyTorch versions, on the card.
+"""K1 / K2 (pre-pass and main) / K3a / K3b CUDA kernels against their plain
+PyTorch versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -94,12 +95,60 @@ def test_kernels_match_plain_on_cuda(dev, dtype):
     args = _k2_inputs()
     args = [x.to(dev) for x in args[:-1]] + [args[-1]]
     args[:3] = [x.to(dt) for x in args[:3]]
-    before = att.LAUNCHES["flash_banked_fwd"]
+    before = dict(att.LAUNCHES)
     out = att.flash_attention_banked_fwd(*args)
-    assert att.LAUNCHES["flash_banked_fwd"] == before + 1
+    for name in ("flash_banked_keys", "flash_banked_fwd"):  # pre-pass, then main
+        assert att.LAUNCHES[name] == before[name] + 1, name
     ref = att.flash_attention_banked_ref(*args)
     _assert_held(out, ref)
     assert bool((out[1] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_k2_prepass_is_exact_on_cuda(dev, dtype):
+    """K2's pre-pass equals its plain version bit for bit: padded tiles, a
+    slot out of range (a zero tile) and the unroped staging tile included."""
+    dt = getattr(torch, dtype)
+    mem_k, slots, w, cos, sin, layer = (_k2_inputs()[i] for i in (1, 3, 4, 6, 7, 8))
+    slots = torch.tensor([3, 9, 5, 2], dtype=torch.int32)
+    mem_k = mem_k.to(dev, dt)
+    args = [x.to(dev) for x in (slots, w, cos, sin)]
+    before = att.LAUNCHES["flash_banked_keys"]
+    got = att.flash_banked_keys(mem_k, *args, layer, 128)
+    assert att.LAUNCHES["flash_banked_keys"] == before + 1
+    want = att.banked_keys(mem_k, *args, layer, dt, 128)
+    assert torch.equal(got, want)
+    assert bool((got.reshape(2, 4, 128, -1)[:, 1] == 0).all())
+
+
+# K1 shapes that take the forward's other compile-time paths: (bh, nq, nk,
+# D, Dv) with one consumer warpgroup and more blocks than SMs, four V panels
+# (Dv = 256), six depth steps (D = 96), and fp32's 32-key tiles (D = 256)
+K1_PATHS = [(3, 3200, 300, 64, 64), (2, 256, 300, 256, 256), (2, 256, 300, 96, 96),
+            (2, 130, 200, 56, 56)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", K1_PATHS, ids=lambda s: "x".join(map(str, s)))
+def test_k1_paths_match_plain_on_cuda(dev, dtype, shape):
+    """K1 against flash_attention_ref on each path, with a dead key range;
+    in bf16 the planted wrong-ring-stage fault must fail the tolerance."""
+    dt = getattr(torch, dtype)
+    bh, nq, nk, d, dv = shape
+    q, k, v = (_rand(s, 10 + i).to(dev, dt) for i, s in enumerate(
+        [(bh, nq, d), (bh, nk, d), (bh, nk, dv)]))
+    bias = torch.zeros(bh, nk, device=dev)
+    bias[:, 128:192] = -1e30
+    out, _ = att.flash_attention_fwd(q, k, v, bias)
+    ref, _ = att.flash_attention_ref(q, k, v, bias)
+    _assert_held(out, ref)
+    if dt == torch.bfloat16:
+        bad, _ = att.flash_attention_fwd(
+            q, k, v, bias, fault=att.FWD_FAULTS["consumer reads the wrong ring stage"])
+        with pytest.raises(AssertionError):
+            _assert_held(bad, ref)
 
 
 @pytest.mark.cuda
