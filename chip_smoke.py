@@ -9,10 +9,12 @@ plain PyTorch version at the shapes the paths give it (serving: hiera-S,
 and fp32 with TF32 off; K2's key pre-pass must equal its plain version bit
 for bit; times kernel, plain version and torch's
 scaled_dot_product_attention (forward for K1, backward for K3a / K3b) as a
-yardstick. Planted faults (a skipped key tile, the consumer reading the
-wrong ring stage, a wrong slot, no RoPE correction, the pre-pass leaving
-out one tile's correction, dq without the delta term, dv from the wrong
-tile, ...) must fail the same check.
+yardstick, and prints the library backward's own error against K3's plain
+version; K3 launched twice must give the same bits. Planted faults (a
+skipped key tile, the consumer reading the wrong ring stage, a wrong slot,
+no RoPE correction, the pre-pass leaving out one tile's correction, dq
+without the delta term, dv from the wrong tile, K3's products in one TF32
+pass, ...) must fail the same check, K3's by at least 7x.
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
@@ -45,15 +47,22 @@ import dataclasses
 import functools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # H100 SXM dense
+# K3a / K3b take their fp32-grade products on the tensor cores as 3xTF32:
+# three TF32 passes a product at 495 TFLOP/s (K1 fp32 stays on the CUDA
+# cores, 67 TFLOP/s)
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 # Kernel vs plain version, in units of the output type's own rounding step
 # (`_ulp`): max-abs error <= MAX_ULPS ulps of max|ref|, and mean-abs error
@@ -66,6 +75,11 @@ PEAK_BYTES = 3.35e12
 # kernel that skips one key tile or reads one wrong bank row is off by
 # >= 3 eps on average. fp32: the same arithmetic in another summation
 # order over up to 28.7k keys with expf: <= ~120 ulps, <= 30 eps on average.
+# K3a / K3b take their fp32 products as 3xTF32 on the tensor cores (each
+# operand split into two TF32 parts, three passes): on an H100 they read <=
+# 0.21 of the mean part of this gate, the library's own fp32 backward (also
+# 3xTF32) 0.16-0.23 against the same plain version (phase 1 prints both),
+# and a planted single TF32 pass ~66-73x; so the fp32 gate holds K3 too.
 MAX_ULPS = {torch.bfloat16: 4, torch.float32: 1024}
 MEAN_EPS = {torch.bfloat16: 0.4, torch.float32: 64}
 K1_SRC = "det_sam2_tpu_torch/csrc/flash_fwd.cu"
@@ -97,8 +111,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float, dtype):
-    t_ops = flops / PEAK_FLOPS[dtype]
+def bound_ms(flops: float, nbytes: float, dtype, peak=None):
+    """(least ms, "operations" or "bytes"): the larger of FLOPs over the
+    peak rate (PEAK_FLOPS[dtype] unless `peak` is given) and bytes over the
+    memory rate."""
+    t_ops = flops / (PEAK_FLOPS[dtype] if peak is None else peak)
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -171,13 +188,20 @@ def _k3_cases():
     ]
 
 
-# planted faults of K3 (att.BWD_FAULTS), per case
+# planted faults of K3 (att.BWD_FAULTS), per case, in both element types;
+# every fp32 case also plants "one TF32 pass" (hi * hi alone), which must
+# fail the fp32 gate: the gate tells fp32-grade products from TF32
 K3_FAULTS = {
     "hiera_bplus_global": ("dq without the delta term", "a live key tile skipped",
                            "dv from the wrong tile"),
     "ragged_edges": ("dq without the delta term", "a live key tile skipped",
                      "P not zeroed where lse <= -1e29", "dv from the wrong tile"),
 }
+K3_F32_FAULT = "one TF32 pass"
+# K3's planted faults, "one TF32 pass" included, must fail the gate by at
+# least this factor: a fault that reads just above the gate would say the
+# gate barely tells a wrong backward (or a TF32 one) from a right one
+K3_FAULT_MARGIN = 7.0
 
 
 def _k2_inputs(b, nq, d, cm, s, ktot, nl, slots, layer, dead, dtype, dev,
@@ -300,10 +324,14 @@ def _k2_faults(slots, w, bias, s):
     ]
 
 
-def _caught(kernel, label, fault, h) -> bool:
+def _caught(kernel, label, fault, h, margin=1.0) -> bool:
+    """The fault fails the tolerance, by at least `margin` times its max or
+    its mean part."""
+    caught = not h["good"] and max(h["max_ulps"], h["mean_eps"]) >= margin
     log(f"[faults] {kernel} {label}: planted '{fault}': {_fmt(h)} "
-        f"{'caught' if not h['good'] else 'MISSED'}")
-    return not h["good"]
+        f"{'caught' if caught else 'MISSED'}"
+        + (f" (needs >= {margin:g}x)" if margin > 1 else ""))
+    return caught
 
 
 def host_us(fn, n: int = 200) -> float:
@@ -388,7 +416,9 @@ def phase_kernels(dev, results):
                     shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                                bias=None if bias is None else list(bias.shape)),
                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                    bound_by=by, library_ms=lib))
+                    bound_by=by, bound_scheme=(
+                        "bf16 tensor cores: FLOPs / 989 TFLOP/s" if dtype == torch.bfloat16
+                        else "fp32 CUDA cores: FLOPs / 67 TFLOP/s"), library_ms=lib))
             del q, k, v, bias, out, lse, ref, ref_lse
             torch.cuda.empty_cache()
 
@@ -460,36 +490,43 @@ def phase_kernels(dev, results):
                     replaces=K2_TPU, kernel="flash_banked_fwd", path="serving",
                     dtype="bfloat16", shape=shape, max_abs_err=err, ms=ms_main,
                     plain_ms=plain_main, bound_ms=b_main, bound_by=by_main,
+                    bound_scheme="bf16 tensor cores: FLOPs / 989 TFLOP/s",
                     library_ms=None))
                 results.append(dict(
                     name=f"flash_banked_keys:{label}", route="cuda", source=K2_KEYS_SRC,
                     replaces=K2_TPU, kernel="flash_banked_keys", path="serving",
                     dtype="bfloat16", shape=shape, max_abs_err=keys_err, ms=ms_keys,
                     plain_ms=plain_keys, bound_ms=b_keys, bound_by=by_keys,
-                    library_ms=None))
+                    bound_scheme="memory: bytes / 3.35 TB/s", library_ms=None))
             del args, margs, kargs, q, mem_k, mem_v, out, ref, keys, keys_ref
             torch.cuda.empty_cache()
     return ok & phase_backward_kernels(dev, results)
 
 
-def _sdpa_backward_ms(q, k, v, bias, dout, iters):
-    """One F.scaled_dot_product_attention call's backward (yardstick)."""
+def _sdpa_backward(q, k, v, bias, dout, iters):
+    """One F.scaled_dot_product_attention call's backward (yardstick): (ms,
+    its (dq, dk, dv))."""
     qq, kk, vv = (x[:, None].detach().requires_grad_() for x in (q, k, v))
     mask = None
     if bias is not None and bool((bias <= -1e29).any()):
         mask = (bias > -1e29)[:, None, None, :]
     o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
     g = dout[:, None]
+    grads = [x[:, 0] for x in torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True)]
     ms = time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True),
                  iters)
     del o
-    return ms
+    return ms, grads
 
 
 def phase_backward_kernels(dev, results):
     """K3a / K3b against flash_attention_bwd_ref on the same inputs (q, k,
     v, bias, out and lse of the plain forward, a random dO) at the training
-    path's shapes, bf16 and fp32; planted faults; times."""
+    path's shapes, bf16 and fp32; a second launch must give the same bits;
+    planted faults; the library backward's own error against the same plain
+    version; times. Bounds: fp32 at the 3xTF32 rate (3 x FLOPs at 495
+    TFLOP/s, the scheme the kernels run), the CUDA-core rate printed beside
+    it."""
     from det_sam2_tpu_torch.ops import attention as att
 
     ok = True
@@ -502,46 +539,65 @@ def phase_backward_kernels(dev, results):
             delta = (dout.float() * out.float()).sum(-1)
             args = (q, k, v, bias, dout, lse, delta)
             got = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+            again = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
             refs = att.flash_attention_bwd_ref(q, k, v, bias, out, lse, dout)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             held = [_held(a, b, dtype) for a, b in zip(got, refs)]
-            good = all(h["good"] for h in held)
+            good = same and all(h["good"] for h in held)
             if bias is not None:
                 dead_rows = ~(bias > -1e29).any(-1)
                 good &= all(bool((x[dead_rows] == 0).all()) for x in got)
             ok &= good
-            if dtype == torch.bfloat16:
-                for fault in K3_FAULTS.get(label, ()):
-                    code = att.BWD_FAULTS[fault]
-                    bad = (att.flash_bwd_dq(*args, fault=code),) + att.flash_bwd_dkv(
-                        *args, fault=code)
-                    hs = [_held(a, b, dtype) for a, b in zip(bad, refs)]
-                    worst = max(hs, key=lambda h: max(h["max_ulps"], h["mean_eps"]))
-                    ok &= _caught("flash_bwd", label, fault, dict(
-                        worst, good=all(h["good"] for h in hs)))
-                    del bad
+            faults = K3_FAULTS.get(label, ())
+            if dtype == torch.float32:
+                faults = faults + (K3_F32_FAULT,)
+            for fault in faults:
+                code = att.BWD_FAULTS[fault]
+                bad = (att.flash_bwd_dq(*args, fault=code),) + att.flash_bwd_dkv(
+                    *args, fault=code)
+                hs = [_held(a, b, dtype) for a, b in zip(bad, refs)]
+                worst = max(hs, key=lambda h: max(h["max_ulps"], h["mean_eps"]))
+                ok &= _caught("flash_bwd", f"{label} {str(dtype)[6:]}", fault, dict(
+                    worst, good=all(h["good"] for h in hs)), K3_FAULT_MARGIN)
+                del bad
             live = bh * nk if bias is None else int((bias > -1e29).sum())
             kv = live * (d + dv) * q.element_size()
             common = nbytes(q, dout.float(), lse, delta, bias) + kv
-            b_dq = bound_ms(2.0 * nq * live * (2 * d + dv), common + nbytes(got[0]), dtype)
-            b_dkv = bound_ms(2.0 * nq * live * (2 * d + 2 * dv),
-                             common + nbytes(got[1], got[2]), dtype)
+            f_dq, f_dkv = 2.0 * nq * live * (2 * d + dv), 2.0 * nq * live * (2 * d + 2 * dv)
+            by_dq, by_dkv = common + nbytes(got[0]), common + nbytes(got[1], got[2])
+            if dtype == torch.float32:  # three TF32 passes a product
+                b_dq = bound_ms(3 * f_dq, by_dq, dtype, PEAK_TF32)
+                b_dkv = bound_ms(3 * f_dkv, by_dkv, dtype, PEAK_TF32)
+                scheme = "3xTF32 tensor cores: 3 x FLOPs / 495 TFLOP/s"
+            else:
+                b_dq, b_dkv = bound_ms(f_dq, by_dq, dtype), bound_ms(f_dkv, by_dkv, dtype)
+                scheme = "bf16 tensor cores: FLOPs / 989 TFLOP/s"
+            core_dq = bound_ms(f_dq, by_dq, torch.float32)[0]
+            core_dkv = bound_ms(f_dkv, by_dkv, torch.float32)[0]
             iters = 10 if dtype == torch.bfloat16 else 3
             ms_dq = time_ms(lambda: att.flash_bwd_dq(*args), iters)
             ms_dkv = time_ms(lambda: att.flash_bwd_dkv(*args), iters)
             plain = time_ms(lambda: att.flash_attention_bwd_ref(q, k, v, bias, out, lse,
                                                                 dout), 2, 1)
-            lib = None
+            lib, lib_held = None, None
             if label != "ragged_edges":
-                lib = _sdpa_backward_ms(q, k, v, bias, dout, iters)
+                lib, lib_grads = _sdpa_backward(q, k, v, bias, dout, iters)
+                lib_held = [_held(a, b, dtype) for a, b in zip(lib_grads, refs)]
+                del lib_grads
             log(f"[kernels] flash_bwd {label} {str(dtype)[6:]} q{list(q.shape)} "
                 f"k{list(k.shape)} v{list(v.shape)} bias="
                 f"{'no' if bias is None else 'yes'}: "
                 + "; ".join(f"{n} {_fmt(h)}" for n, h in zip(("dq", "dk", "dv"), held))
-                + f" | dq ms {ms_dq:.4f} bound {b_dq[0]:.4f} ({b_dq[1]}), dkv ms "
-                f"{ms_dkv:.4f} bound {b_dkv[0]:.4f} ({b_dkv[1]}), plain_ms (both) "
-                f"{plain:.4f}, sdpa_backward_ms "
-                f"{'n/a' if lib is None else f'{lib:.4f}'} {'OK' if good else 'FAIL'}")
+                + f"; two launches bit-identical {same}"
+                + ("" if lib_held is None else " | library backward vs the same plain: "
+                   + "; ".join(f"{n} {_fmt(h)}" for n, h in zip(("dq", "dk", "dv"), lib_held)))
+                + f" | dq ms {ms_dq:.4f} bound {b_dq[0]:.4f} ({b_dq[1]}; {scheme}; fp32 "
+                f"CUDA cores {core_dq:.4f}), dkv ms {ms_dkv:.4f} bound {b_dkv[0]:.4f} "
+                f"({b_dkv[1]}; CUDA cores {core_dkv:.4f}), plain_ms (both) {plain:.4f}, "
+                f"sdpa_backward_ms {'n/a' if lib is None else f'{lib:.4f}'} "
+                f"{'OK' if good else 'FAIL'}")
             if dtype == torch.float32 and label != "ragged_edges":
                 shape = dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
                              bias=None if bias is None else list(bias.shape))
@@ -553,7 +609,9 @@ def phase_backward_kernels(dev, results):
                         name=f"{name}:{label}", route="cuda", source=src, replaces=tpu,
                         kernel=name, path="training", dtype="float32", shape=shape,
                         max_abs_err=h["err"], ms=m, plain_ms=plain, bound_ms=bnd,
-                        bound_by=by, library_ms=lib))
+                        bound_by=by, bound_scheme=scheme,
+                        library_ms=lib, library_max_abs_err=max(
+                            x["err"] for x in lib_held)))
             del q, k, v, bias, dout, out, lse, delta, args, got, refs
             torch.cuda.empty_cache()
     return ok
@@ -1171,6 +1229,40 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _demangle(names):
+    """C++ names of mangled symbols, through the CUDA toolkit's cu++filt (or
+    c++filt); the mangled names where neither is there."""
+    from det_sam2_tpu_torch.ops.attention import _nvcc
+
+    for tool in (str(Path(_nvcc()).with_name("cu++filt")), "c++filt"):
+        if shutil.which(tool):
+            out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                                 text=True, timeout=60).stdout.splitlines()
+            if len(out) == len(names):
+                return out
+    return list(names)
+
+
+def ptxas_report(text: str):
+    """ptxas -v's lines of one library, one a kernel instance: the instance
+    by name and template arguments (`flash_bwd_dkv_kernel<float, 256, 64,
+    32>`), its registers and its stack / spill bytes."""
+    rows, name, spill = [], "?", ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            name, spill = line.split("Function properties for", 1)[1].strip(), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            rows.append((name, line.split("Used", 1)[1].strip(), spill))
+    names = _demangle([r[0] for r in rows])
+    out = []
+    for full, (_, regs, spill) in zip(names, rows):
+        short = re.search(r"(\w+<[^()]*>)\(", full.replace("(int)", ""))
+        out.append(f"{short.group(1) if short else full}: {regs}; {spill}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
@@ -1190,9 +1282,8 @@ def main() -> int:
     for name, path in paths.items():
         rep = path.with_suffix(".log")
         if rep.exists():
-            for line in rep.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+            for line in ptxas_report(rep.read_text()):
+                log(f"[build] {name}: {line}")
 
     results = []
     t_phase = time.time()

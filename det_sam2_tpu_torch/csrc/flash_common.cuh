@@ -1,7 +1,7 @@
 // Shared core of the hand-written Hopper flash-attention kernels: the
 // forward bodies of K1 (flash_fwd.cu) and K2 (flash_banked_fwd.cu) and,
-// further down, the helpers of the two backward kernels (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu).
+// further down, the body of the two backward kernels (flash_bwd_dq.cu,
+// flash_bwd_dkv.cu), 3xTF32 on the tensor cores.
 //
 // Forward. One thread block computes one 64-row query tile of one (batch *
 // head) row and loops over the key/value tiles itself, in place of the TPU
@@ -43,10 +43,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace flash {
 
 constexpr int kBQ = 64;          // query rows per block
-constexpr int kThreads = 128;    // four warps: fp32 forward and the backward kernels
+constexpr int kThreads = 128;    // four warps: the fp32 forward
 constexpr int kBK16 = 64;        // key rows per tile, bf16 forward
 constexpr float kNegInit = -1e30f;       // running-max start, as the TPU kernel
 constexpr float kSkipThreshold = -1e29f; // a tile whose max bias is below is skipped
@@ -638,15 +640,17 @@ __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [0, nrows) of a row-major [*, ncols] fp32 matrix (row stride src_ld)
-// into shared memory (row stride dst_ld), 16 bytes a copy; rows >= nvalid
-// are zero-filled. ncols a multiple of 4, src 16-byte aligned.
+// Columns [0, ncols) of rows [0, nrows) of a row-major fp32 matrix (row
+// stride src_ld) into shared memory (row stride dst_ld), by the NT threads
+// of the block, 16 bytes a copy; rows >= nvalid and columns >= nsrc are
+// zero-filled. ncols and nsrc multiples of 4, src 16-byte aligned.
+template <int NT = kThreads>
 __device__ inline void cp_rows_f32(float* dst, int dst_ld, const float* src, size_t src_ld,
-                                   int nvalid, int nrows, int ncols) {
+                                   int nvalid, int nrows, int ncols, int nsrc) {
   const int vpr = ncols / 4;
-  for (int i = threadIdx.x; i < nrows * vpr; i += kThreads) {
+  for (int i = threadIdx.x; i < nrows * vpr; i += NT) {
     const int r = i / vpr, c = (i % vpr) * 4;
-    const bool ok = r < nvalid;
+    const bool ok = r < nvalid && c < nsrc;
     cp_async16(dst + (size_t)r * dst_ld + c, ok ? src + r * src_ld + c : src, ok);
   }
 }
@@ -703,13 +707,13 @@ __device__ inline void flash_body_f32(const Src& src, const float* __restrict__ 
   const int nlive = build_live_list<BK>(src, list);
   const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
 
-  cp_rows_f32(sQ, ldk, q + ((size_t)src.row * nq + q0) * d, d, nvalid_q, BQ, d);
+  cp_rows_f32(sQ, ldk, q + ((size_t)src.row * nq + q0) * d, d, nvalid_q, BQ, d, d);
   auto fetch = [&](int i) {
     const float *kp, *vp;
     int nk_valid, nv_valid;
     src.rows(list[i], BK, kp, vp, nk_valid, nv_valid);
-    cp_rows_f32(sK + (i & 1) * BK * ldk, ldk, kp, d, nk_valid, BK, d);
-    cp_rows_f32(sV + (i & 1) * BK * ldv, ldv, vp, dv, nv_valid, BK, dv);
+    cp_rows_f32(sK + (i & 1) * BK * ldk, ldk, kp, d, nk_valid, BK, d, d);
+    cp_rows_f32(sV + (i & 1) * BK * ldv, ldv, vp, dv, nv_valid, BK, dv, dv);
   };
   if (nlive > 0) fetch(0);
   cp_async_commit();
@@ -954,7 +958,7 @@ inline int launch_kernel_n(Kernel kernel, dim3 grid, int threads, size_t smem,
   return (int)cudaGetLastError();
 }
 
-// The same with the four-warp block of the fp32 forward and the backward kernels.
+// The same with the four-warp block of the fp32 forward.
 template <typename Kernel, typename... Args>
 inline int launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                          Args... args) {
@@ -962,105 +966,566 @@ inline int launch_kernel(Kernel kernel, dim3 grid, size_t smem, cudaStream_t str
 }
 
 // ---------------------------------------------------------------------------
-// backward (flash_bwd_dq.cu, flash_bwd_dkv.cu): fp32 arithmetic on the CUDA
-// cores for both element types, every tile staged in shared memory as fp32.
-// bf16 inputs are exact in fp32, so only the roundings the TPU kernels make
-// (dS to the input type before the dq / dk products) are bf16 roundings.
+// backward (K3a flash_bwd_dq.cu, K3b flash_bwd_dkv.cu): one body for both.
+//
+// A block keeps 64 (or 32) rows resident in shared memory as fp32 (K3a: the
+// query rows' Q and dO; K3b: the key rows' K and V) and streams the other side in
+// tiles of BT rows (K3a: K and V of the live key tiles; K3b: Q and dO of
+// every query tile) through a ring of 2-4 cp.async stages, so the copies of
+// the next tiles are in flight during the math of this one. bf16 operands
+// are widened to fp32 on the way in (plain loads, not cp.async).
+//
+// Products run on the tensor cores as 3xTF32 (mma.sync m16n8k8 .tf32 with
+// fp32 accumulators): each fp32 operand x is split into hi = x rounded to
+// TF32 and lo = (x - hi) rounded to TF32, and a product is lo*hi + hi*lo +
+// hi*hi. The small terms go to an accumulator of their own, added to the
+// large one once the contraction is done: the tensor core truncates where
+// it aligns addends, and small terms added to a large sum would lose their
+// low bits. bf16 values are exact in TF32 (lo = 0), so those passes are
+// left out at compile time. The output accumulators (dq; dk, dv) live in
+// registers: each tile's contribution is summed in fresh registers and then
+// added to them with an fp32 add, so no truncated sum spans two tiles.
+//
+// Shapes are compile-time inside the loops: D and Dv are padded to their
+// bucket (64 or 256) with zero columns in shared memory, and the planted
+// one-pass fault picks another instance of the product loops at the call,
+// so that no branch splits the loops (a branch there fences every mma into
+// its own region and the loads of the next step cannot move ahead of it).
+//
+// Eight warps (two warpgroups) in SIDES = 2 (or 4, bwd_sides) shares of the
+// columns: warp w owns the 16 resident rows of row group w % (8 / SIDES)
+// and the column share w / (8 / SIDES). For S = X A^T and dP = Y B^T it
+// takes that share of the contraction (of D, of Dv), and the warps of a row
+// group add their partial sums through shared memory in one fixed order
+// (so all hold the same bits); all then compute the same P and dS, and each
+// multiplies them into its own share of the output columns. dS and P go
+// from the accumulator layout straight to A fragments, the keys of each
+// 8-key step taken in a permuted order that the B fragments follow. No
+// atomics: every block owns its output rows, so a launch is deterministic.
 // ---------------------------------------------------------------------------
 
+constexpr int kBwdThreads = 256;    // eight warps: two warpgroups
 constexpr float kDeadLse = -1e30f;  // lse of a query row outside Nq: P = 0
+
+// Planted faults of the backward kernels, for the checks that must catch
+// them (chip_smoke.py phase 1); 0 in every production call.
+enum BwdFault : int {
+  kFaultNone = 0,
+  kFaultNoDelta = 1,      // K3a: dS = P * dP, the delta term left out
+  kFaultSkipTile = 2,     // K3b: key block 1 skipped although it is live
+  kFaultUnsafeP = 3,      // both: P = exp(S - lse) also where lse <= -1e29
+  kFaultDvWrongTile = 4,  // K3b: block b's dv written to the rows of block b + 1
+  kFaultOneTf32Pass = 5   // both: every product hi * hi alone (one TF32 pass)
+};
 
 template <typename T> __device__ inline float round_to(float x);
 template <> __device__ inline float round_to<float>(float x) { return x; }
 template <> __device__ inline float round_to<bf16>(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
-__device__ inline void store_elem(float* p, float x) { *p = x; }
-__device__ inline void store_elem(bf16* p, float x) { *p = __float2bfloat16(x); }
+template <typename T> __device__ inline T from_float(float x);
+template <> __device__ inline float from_float<float>(float x) { return x; }
+template <> __device__ inline bf16 from_float<bf16>(float x) { return __float2bfloat16(x); }
+__device__ inline void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ inline void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
-// Stage rows [0, nrows) of a row-major [*, ncols] global matrix of T into
-// fp32 shared memory (row stride dst_ld); rows >= nvalid and columns in
-// [ncols, ncols_pad) are zero-filled. ncols and ncols_pad are multiples of 8,
-// dst_ld of 4; src and its rows are 16-byte aligned.
+// The 3xTF32 split of x: hi = x rounded to TF32 (10 mantissa bits, to
+// nearest, ties away from zero: the rounding of cvt.rna.tf32.f32), lo = x -
+// hi (exact in fp32) rounded the same way; x = hi + lo to about 2^-22
+// relative. Integer operations on the bits, as the plain
+// ops/attention.py:split_tf32 does: adding half a TF32 ulp rounds, and the
+// low 13 bits need no mask for the mma, which reads the top 19 bits of a
+// .tf32 operand (CUTLASS's round_half_ulp_truncate relies on the same); hi
+// is masked only where it is subtracted.
+__device__ inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)) + 0x1000u;
+}
+
+// d += a b: one m16n8k8 TF32 product with fp32 accumulators. Thread (g, t) =
+// (lane / 4, lane % 4) holds a = A[g][t], A[g + 8][t], A[g][t + 4],
+// A[g + 8][t + 4]; b = B[t][g], B[t + 4][g]; d = D[g][2t], D[g][2t + 1],
+// D[g + 8][2t], D[g + 8][2t + 1].
+__device__ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 3xTF32 step: la += a_lo b_hi, lb += a_hi b_lo, hi += a_hi b_hi (three
+// accumulators, so no two of the step's products wait on each other). LOA /
+// LOB: the operand has a low part (fp32 data; bf16 data is exact in TF32).
+// ONE: the planted fault that keeps hi * hi alone.
+template <bool LOA, bool LOB, bool ONE>
+__device__ inline void mma3(float (&hi)[4], float (&la)[4], float (&lb)[4],
+                            const uint32_t (&ah)[4], const uint32_t (&al)[4],
+                            const uint32_t (&bh)[2], const uint32_t (&bl)[2]) {
+  if constexpr (LOA && !ONE) mma_tf32(la, al, bh[0], bh[1]);
+  if constexpr (LOB && !ONE) mma_tf32(lb, ah, bl[0], bl[1]);
+  mma_tf32(hi, ah, bh[0], bh[1]);
+}
+
+// acc[n] = sum over the KS 8-column steps from column 8 k0 of X[16 rows][8 kk
+// + 0..7] T[8 n + 0..7][8 kk + 0..7]^T for n < NT: a 16 x 8 NT block of X
+// T^T, both operands K-major in shared memory (row strides 4 mod 32 banks,
+// so the fragment loads are free of bank conflicts).
+template <int NT, int KS, bool LOA, bool LOB, bool ONE>
+__device__ inline void mm_nt_3xtf32(float (&acc)[NT][4], const float* x, int ldx,
+                                    const float* tt, int ldt, int k0) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  // the two low passes share an accumulator where NT >= 4 steps already
+  // give enough independent ones (fewer registers)
+  constexpr bool LO2 = NT >= 4;
+  float la[NT][4], lb[LO2 ? 1 : NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = la[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (LO2 ? 1 : NT); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) lb[n][e] = 0.0f;
+#pragma unroll 4
+  for (int kk = k0; kk < k0 + KS; ++kk) {
+    const int c = 8 * kk + t;
+    uint32_t ah[4], al[4];
+    split_tf32(x[g * ldx + c], ah[0], al[0]);
+    split_tf32(x[(g + 8) * ldx + c], ah[1], al[1]);
+    split_tf32(x[g * ldx + c + 4], ah[2], al[2]);
+    split_tf32(x[(g + 8) * ldx + c + 4], ah[3], al[3]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* b = tt + (8 * n + g) * ldt + c;
+      uint32_t bh[2], bl[2];
+      split_tf32(b[0], bh[0], bl[0]);
+      split_tf32(b[4], bh[1], bl[1]);
+      if constexpr (LO2)
+        mma3<LOA, LOB, ONE>(acc[n], la[n], la[n], ah, al, bh, bl);
+      else
+        mma3<LOA, LOB, ONE>(acc[n], la[n], lb[n], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (LO2)
+        acc[n][e] += la[n][e];
+      else
+        acc[n][e] += la[n][e] + lb[n][e];
+    }
+}
+
+// acc[n] += sum over j < NT of C[16 rows][8 j + 0..7] T[8 j + 0..7][8 (n0 +
+// n) + 0..7] for n < NO. C (dS or P) is in the accumulator layout of
+// mm_nt_3xtf32 and is used as the A operand in place: in step j, A's column
+// t is key 8j + 2t and column t + 4 is key 8j + 2t + 1, and T's rows are read
+// in that order. T row-major in shared memory (row stride 4 mod 32 banks).
+// Each output step's sum over the tile is taken in fresh registers and added
+// to acc in fp32.
+template <int NT, int NO, bool LOA, bool LOB, bool ONE>
+__device__ inline void mm_cn_3xtf32(float (&acc)[NO][4], const float (&cf)[NT][4],
+                                    const float* tt, int ldt, int n0) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  uint32_t ah[NT][4], al[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split_tf32(cf[j][0], ah[j][0], al[j][0]);
+    split_tf32(cf[j][2], ah[j][1], al[j][1]);
+    split_tf32(cf[j][1], ah[j][2], al[j][2]);
+    split_tf32(cf[j][3], ah[j][3], al[j][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const float* b = tt + 2 * t * ldt + 8 * (n0 + n) + g;
+    float hi[4] = {0.0f, 0.0f, 0.0f, 0.0f}, la[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    float lb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bh[2], bl[2];
+      split_tf32(b[8 * j * ldt], bh[0], bl[0]);
+      split_tf32(b[(8 * j + 1) * ldt], bh[1], bl[1]);
+      mma3<LOA, LOB, ONE>(hi, la, lb, ah[j], al[j], bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += hi[e] + (la[e] + lb[e]);
+  }
+}
+
+// Rows [0, NROWS) of a row-major [*, ncols] matrix of T into fp32 shared
+// memory (row stride ldd), padded to PAD columns: rows >= nvalid and
+// columns >= ncols as zeros. fp32 by cp_rows_f32 (in the caller's open
+// cp.async group), bf16 widened on the way (8 elements a load). ncols a
+// multiple of 8, src 16-byte aligned.
+template <typename T, int NROWS, int PAD>
+__device__ inline void stage_rows(float* dst, int ldd, const T* src, int ncols, int nvalid) {
+  if constexpr (sizeof(T) == 4) {
+    cp_rows_f32<kBwdThreads>(dst, ldd, src, ncols, nvalid, NROWS, PAD, ncols);
+  } else {
+    constexpr int VPR = PAD / 8;
+    for (int i = threadIdx.x; i < NROWS * VPR; i += kBwdThreads) {
+      const int r = i / VPR, c = (i % VPR) * 8;
+      float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (r < nvalid && c < ncols) load8(src + (size_t)r * ncols + c, f);
+      store8(dst + r * ldd + c, f);
+    }
+  }
+}
+
+__device__ inline void cp_async_wait_upto(int n) {
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<2>();
+}
+
+// out[r][8 (n0 + n) + 2t + {0, 1}] = acc * scale for this thread's rows r =
+// r16 + g + {0, 8} below nvalid and columns below ld: each element of the
+// block's rows written once, from registers
+template <int NO, typename T>
+__device__ inline void store_acc(T* out, int ld, const float (&acc)[NO][4], int r16, int n0,
+                                 int nvalid, float scale) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r16 + g + 8 * rr;
+    if (r >= nvalid) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      if (8 * (n0 + n) < ld)
+        store2(out + (size_t)r * ld + 8 * (n0 + n) + 2 * t, acc[n][2 * rr] * scale,
+               acc[n][2 * rr + 1] * scale);
+  }
+}
+
+// Operands of the backward kernels (the C entries' arguments): q, k [BH, N,
+// D], v [BH, Nk, Dv] and the gradients gq, gk, gv of the same shapes in T;
+// dout [BH, Nq, Dv], lse and delta [BH, Nq], bias [BH, Nk] (or null) fp32.
 template <typename T>
-__device__ inline void stage_f32(float* dst, int dst_ld, const T* src, size_t src_ld,
-                                 int nvalid, int nrows, int ncols, int ncols_pad) {
-  const int vpr = ncols_pad / 8;
-  for (int i = threadIdx.x; i < nrows * vpr; i += kThreads) {
-    const int r = i / vpr, c = (i % vpr) * 8;
-    float f[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (r < nvalid && c < ncols) load8(src + r * src_ld + c, f);
-    store8(dst + (size_t)r * dst_ld + c, f);
-  }
-}
-
-// out[r][c] += scale * sum_{k < kdim} A[r][k] * B[k][c] for this thread's
-// rows r = rg + 16 i (i < RM) and columns c = 32 jj + 4 cg + {0..3} over
-// jj < ncols_pad / 32: the (16 RM) x ncols_pad block of out += scale A B.
-// kdim, lda multiples of 4; ldb, ldo multiples of 4; ncols_pad of 32.
-template <int RM>
-__device__ inline void mm_nn_acc(float* out, int ldo, const float* A, int lda, const float* B,
-                                 int ldb, int kdim, int ncols_pad, float scale) {
-  const int rg = threadIdx.x / 8, cg = threadIdx.x % 8;
-  for (int c = 4 * cg; c < ncols_pad; c += 32) {
-    float acc[RM][4];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
-    for (int k = 0; k < kdim; k += 4) {
-      float4 a[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) a[i] = ld4(A + (rg + 16 * i) * lda + k);
-      const float4 b0 = ld4(B + (k + 0) * ldb + c), b1 = ld4(B + (k + 1) * ldb + c);
-      const float4 b2 = ld4(B + (k + 2) * ldb + c), b3 = ld4(B + (k + 3) * ldb + c);
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        acc[i][0] += a[i].x * b0.x + a[i].y * b1.x + a[i].z * b2.x + a[i].w * b3.x;
-        acc[i][1] += a[i].x * b0.y + a[i].y * b1.y + a[i].z * b2.y + a[i].w * b3.y;
-        acc[i][2] += a[i].x * b0.z + a[i].y * b1.z + a[i].z * b2.z + a[i].w * b3.z;
-        acc[i][3] += a[i].x * b0.w + a[i].y * b1.w + a[i].z * b2.w + a[i].w * b3.w;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float4* o = reinterpret_cast<float4*>(out + (rg + 16 * i) * ldo + c);
-      float4 v = *o;
-      v.x += acc[i][0] * scale;
-      v.y += acc[i][1] * scale;
-      v.z += acc[i][2] * scale;
-      v.w += acc[i][3] * scale;
-      *o = v;
-    }
-  }
-}
-
-// The additive bias of keys [k0, k0 + n) into dst (0 without a bias, -inf
-// past Nk); returns in every thread whether any of them is live (bias above
-// -1e29). Called by every thread; ends with the buffers visible to all.
-__device__ inline bool bias_tile_live(const float* bias, int k0, int n, int nk, float* dst,
-                                      int* flag) {
-  __syncthreads();  // earlier readers of dst / flag are done
-  for (int c = threadIdx.x; c < n; c += kThreads) {
-    const int key = k0 + c;
-    dst[c] = key < nk ? (bias != nullptr ? bias[key] : 0.0f) : -INFINITY;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = -INFINITY;
-    for (int c = 0; c < n; ++c) mx = fmaxf(mx, dst[c]);
-    *flag = mx > kSkipThreshold;
-  }
-  __syncthreads();
-  return *flag != 0;
-}
-
-// Planted faults of the backward kernels, for the checks that must catch
-// them (chip_smoke.py phase 1); 0 in every production call.
-enum BwdFault : int {
-  kFaultNone = 0,
-  kFaultNoDelta = 1,     // K3a: dS = P * dP, the delta term left out
-  kFaultSkipTile = 2,    // K3b: key tile 1 skipped although it is live
-  kFaultUnsafeP = 3,     // both: P = exp(S - lse) also where lse <= -1e29
-  kFaultDvWrongTile = 4  // K3b: tile t's dv written to the rows of tile t + 1
+struct BwdParams {
+  const T *q, *k, *v;
+  const float *bias, *dout, *lse, *delta;
+  T *gq, *gk, *gv;
+  int nq, nk, d, dv;
+  float scale;
+  int fault, stages;
 };
+
+// The keys of one (batch * head) row as tiles of BK keys: the source policy
+// of build_live_list (0 bias without one, -inf past Nk).
+struct BwdKeys {
+  const float* bias;  // [Nk] or null
+  int nk;
+  __device__ int num_tiles(int bk) const { return (nk + bk - 1) / bk; }
+  __device__ bool has_bias() const { return bias != nullptr; }
+  __device__ TileBias tile_bias(int k0) const {
+    return TileBias{bias != nullptr ? bias + k0 : nullptr, nk - k0};
+  }
+};
+
+// Streamed rows a tile: 16 where D and Dv both take the 256-column bucket
+// (the fp32 resident rows and the ring of 256-column tiles leave room for
+// two or three such stages only), else 32.
+__host__ __device__ constexpr int bwd_tile(int dmax, int dvmax) {
+  return dmax > 64 && dvmax > 64 ? 16 : 32;
+}
+// Ways the eight warps split the output columns (and S's and dP's
+// contraction): 4, over 32 resident rows a block (two row groups of 16),
+// where D and Dv both take the 256 bucket: K3b's dk and dv would otherwise
+// hold 128 accumulator registers a thread and spill, and the BH = 3 memory
+// self-attention grid doubles to 2.9 waves of blocks; else 2, over 64 rows
+// (four row groups), which reads each streamed tile for twice the rows.
+__host__ __device__ constexpr int bwd_sides(int dmax, int dvmax) {
+  return dmax > 64 && dvmax > 64 ? 4 : 2;
+}
+__host__ __device__ constexpr int bwd_rows(int dmax, int dvmax) {
+  return 16 * (8 / bwd_sides(dmax, dvmax));
+}
+// Blocks an SM the register budget is set for: two at D, Dv <= 64.
+__host__ __device__ constexpr int bwd_min_blocks(int dmax, int dvmax) {
+  return dmax <= 64 && dvmax <= 64 ? 2 : 1;
+}
+// floats of the exchange buffer: [8 warps][S, dP][BT / 8][4][32 lanes]
+__host__ __device__ constexpr int bwd_xch_floats(int bt) { return 2 * 4 * 2 * (bt / 8) * 128; }
+
+// Shared memory of the backward at the column buckets dmax, dvmax: the
+// resident rows, `stages` streamed tiles, the exchange buffer and (K3a) the
+// live list of nlist key tiles.
+inline size_t bwd_smem_bytes(int dmax, int dvmax, int bt, int stages, int nlist) {
+  const size_t row = (size_t)ld_f32(dmax) + ld_f32(dvmax);
+  const size_t rows = bwd_rows(dmax, dvmax);
+  return sizeof(float) * (rows * row + (size_t)stages * bt * row + bwd_xch_floats(bt)) +
+         (nlist > 0 ? 4 * ((size_t)nlist + 1) : 0);
+}
+
+// Ring stages of the backward (2-4), or 0 when two do not fit: two blocks an
+// SM where the kernel is built for it and two stages fit in half an SM, with
+// as many stages as fit there; else as many as fit in one block's 227 KB.
+inline int bwd_stages(int dmax, int dvmax, int bt, int nlist, bool two_blocks) {
+  const size_t half_sm = kSmemPerSm / 2 - 1024;
+  const size_t base = bwd_smem_bytes(dmax, dvmax, bt, 0, nlist);
+  const size_t stage =
+      bwd_smem_bytes(dmax, dvmax, bt, 1, 0) - bwd_smem_bytes(dmax, dvmax, bt, 0, 0);
+  const size_t cap = two_blocks && base + 2 * stage <= half_sm ? half_sm : kMaxSmem;
+  if (base + 2 * stage > cap) return 0;
+  const size_t n = (cap - base) / stage;
+  return n < 4 ? (int)n : 4;
+}
+
+// f.run<DMAX, DVMAX>() with the backward's compile-time column buckets (64
+// or 256) of D and Dv
+template <class F>
+inline int dispatch_bwd(int d, int dv, const F& f) {
+  if (d <= 64) return dv <= 64 ? f.template run<64, 64>() : f.template run<64, 256>();
+  return dv <= 64 ? f.template run<256, 64>() : f.template run<256, 256>();
+}
+
+// K3a (DKV = false): dq of the BR = bwd_rows(DMAX, DVMAX) query rows of
+// block (x, y) = (row tile, batch * head); K3b (DKV = true): dk and dv of
+// its BR key rows. DMAX, DVMAX: the column buckets of D, Dv; BT =
+// bwd_tile(DMAX, DVMAX).
+template <typename T, bool DKV, int DMAX, int DVMAX, int BT>
+__device__ inline void flash_bwd_body(const BwdParams<T>& p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int SIDES = bwd_sides(DMAX, DVMAX), RG = 8 / SIDES, BR = 16 * RG;
+  constexpr int NT = BT / 8;                // 8-row steps of a streamed tile
+  constexpr int NXD = DMAX / (8 * SIDES);   // 8-column steps of D a warp takes
+  constexpr int NXV = DVMAX / (8 * SIDES);  // of Dv
+  // element types of the resident Y (dO | V) and the streamed B (V | dO);
+  // the resident X (Q | K) and the streamed A (K | Q) are T
+  using TY = typename std::conditional<DKV, T, float>::type;
+  using TB = typename std::conditional<DKV, float, T>::type;
+  constexpr bool LO_T = F32, LO_Y = !DKV || F32, LO_B = DKV || F32;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rg = warp % RG, side = warp / RG, g = lane / 4, t = lane % 4;
+  const int d = p.d, dv = p.dv;
+  constexpr int ldx = DMAX + 4, ldy = DVMAX + 4;  // ld_f32 of the buckets
+  const bool one_pass = p.fault == kFaultOneTf32Pass;
+  // this warp's share of the 8-column steps of D and of Dv
+  const int d0 = side * NXD, v0 = side * NXV;
+
+  float* sX = reinterpret_cast<float*>(smem_raw);
+  float* sY = sX + BR * ldx;
+  float* ring = sY + BR * ldy;
+  const int stage_floats = BT * (ldx + ldy);
+  float* xch = ring + p.stages * stage_floats;
+  int* list = reinterpret_cast<int*>(xch + bwd_xch_floats(BT));
+
+  const size_t bh = blockIdx.y;
+  const int r0 = blockIdx.x * BR;
+  const int nres = DKV ? p.nk : p.nq, nstr = DKV ? p.nq : p.nk;
+  const int nvalid = min(BR, nres - r0);
+  const BwdKeys keys{p.bias != nullptr ? p.bias + bh * p.nk : nullptr, p.nk};
+  const T* X = (DKV ? p.k : p.q) + (bh * nres + r0) * d;
+  const TY* Y;
+  const T* A;
+  const TB* B;
+  if constexpr (DKV) {
+    Y = p.v + (bh * p.nk + r0) * dv;
+    A = p.q + bh * p.nq * d;
+    B = p.dout + bh * p.nq * dv;
+  } else {
+    Y = p.dout + (bh * p.nq + r0) * dv;
+    A = p.k + bh * p.nk * d;
+    B = p.v + bh * p.nk * dv;
+  }
+
+  // this thread's resident rows 16 rg + g + 8 rr: K3a the query rows' lse and
+  // delta, K3b the key rows' bias
+  float row_a[2], row_b[2];
+  bool row_live[2];
+  int out_block = blockIdx.x;
+  if constexpr (DKV) {
+    const TileBias tb = keys.tile_bias(r0);
+    bool any = false;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      row_a[rr] = tb.at(16 * rg + g + 8 * rr);
+      any |= row_a[rr] > kSkipThreshold;
+    }
+    bool live = __syncthreads_or(any) != 0;
+    if (p.fault == kFaultSkipTile && blockIdx.x == 1) live = false;
+    if (p.fault == kFaultDvWrongTile) out_block = (blockIdx.x + 1) % gridDim.x;
+    const int nvalid_out = min(nvalid, p.nk - out_block * BR);
+    if (!live) {  // a dead key block: dk = dv = 0, as the TPU kernel's init leaves them
+      T* gk = p.gk + (bh * p.nk + r0) * d;
+      T* gv = p.gv + (bh * p.nk + (size_t)out_block * BR) * dv;
+      for (int i = threadIdx.x; i < nvalid * d; i += kBwdThreads) gk[i] = from_float<T>(0.0f);
+      for (int i = threadIdx.x; i < nvalid_out * dv; i += kBwdThreads)
+        gv[i] = from_float<T>(0.0f);
+      return;
+    }
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = 16 * rg + g + 8 * rr;
+      const size_t at = bh * p.nq + r0 + r;
+      row_a[rr] = r < nvalid ? p.lse[at] : kDeadLse;
+      row_b[rr] = r < nvalid && p.fault != kFaultNoDelta ? p.delta[at] : 0.0f;
+      row_live[rr] = row_a[rr] > kSkipThreshold || p.fault == kFaultUnsafeP;
+    }
+  }
+
+  stage_rows<T, BR, DMAX>(sX, ldx, X, d, nvalid);
+  stage_rows<TY, BR, DVMAX>(sY, ldy, Y, dv, nvalid);
+  cp_async_commit();
+  // K3a: the live key tiles, in order (a dead tile is never copied); K3b:
+  // every query tile
+  int ntiles;
+  if constexpr (DKV)
+    ntiles = (nstr + BT - 1) / BT;
+  else
+    ntiles = build_live_list<BT>(keys, list);
+  auto first_row = [&](int i) { return (DKV ? i : list[i]) * BT; };
+  auto fetch = [&](int i) {
+    const int s0 = first_row(i);
+    float* st = ring + (i % p.stages) * stage_floats;
+    const int n = min(BT, nstr - s0);
+    stage_rows<T, BT, DMAX>(st, ldx, A + (size_t)s0 * d, d, n);
+    stage_rows<TB, BT, DVMAX>(st + BT * ldx, ldy, B + (size_t)s0 * dv, dv, n);
+  };
+
+  float acc1[NXD][4], acc2[DKV ? NXV : 1][4];
+#pragma unroll
+  for (int n = 0; n < NXD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < (DKV ? NXV : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.0f;
+  // the exchange buffer of warp (side j, row group rg): [S, dP][NT][4][32]
+  auto part = [&](int j) { return xch + (j * RG + rg) * 2 * NT * 128; };
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < ntiles) fetch(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait_upto(p.stages - 2);  // tile i is in
+    __syncthreads();                   // for every warp; all are done with tile i - 1
+    if (i + p.stages - 1 < ntiles) fetch(i + p.stages - 1);  // into tile i - 1's stage
+    cp_async_commit();
+    const float* sA = ring + (i % p.stages) * stage_floats;
+    const float* sB = sA + BT * ldx;
+    const int s0 = first_row(i);
+    // this thread's streamed rows 8n + 2t + e of the tile: K3a the keys'
+    // bias, K3b the queries' lse and delta
+    float col_a[NT][2], col_b[NT][2];
+    if constexpr (DKV) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int qr = s0 + 8 * n + 2 * t + e;
+          col_a[n][e] = qr < p.nq ? p.lse[bh * p.nq + qr] : kDeadLse;
+          col_b[n][e] = qr < p.nq ? p.delta[bh * p.nq + qr] : 0.0f;
+        }
+    } else {
+      const TileBias tb = keys.tile_bias(s0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) col_a[n][e] = tb.at(8 * n + 2 * t + e);
+    }
+
+    // S = X A^T and dP = Y B^T over this warp's share of D and of Dv, then
+    // the sums of all shares, taken in the same order by every warp of the
+    // row group (so all hold the same bits)
+    float s[NT][4], dp[NT][4];
+    auto scores = [&](auto one) {
+      constexpr bool ONE = decltype(one)::value;
+      mm_nt_3xtf32<NT, NXD, LO_T, LO_T, ONE>(s, sX + 16 * rg * ldx, ldx, sA, ldx, d0);
+      mm_nt_3xtf32<NT, NXV, LO_Y, LO_B, ONE>(dp, sY + 16 * rg * ldy, ldy, sB, ldy, v0);
+    };
+    if (one_pass)
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+    float* mine = part(side);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32 + lane] = s[n][e];
+        mine[((NT + n) * 4 + e) * 32 + lane] = dp[n][e];
+      }
+    named_bar_sync(1 + rg, 32 * SIDES);  // the warps of the row group
+    if constexpr (SIDES == 2) {  // a + b = b + a: the other share is enough
+      const float* other = part(1 - side);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] += other[(n * 4 + e) * 32 + lane];
+          dp[n][e] += other[((NT + n) * 4 + e) * 32 + lane];
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int is = (n * 4 + e) * 32 + lane, ip = ((NT + n) * 4 + e) * 32 + lane;
+          s[n][e] = (part(0)[is] + part(1)[is]) + (part(2)[is] + part(3)[is]);
+          dp[n][e] = (part(0)[ip] + part(1)[ip]) + (part(2)[ip] + part(3)[ip]);
+        }
+    }
+
+    // P and dS: element e of step n is resident row 16 rg + g + 8 (e / 2),
+    // streamed row 8n + 2t + e % 2
+    float pm[NT][4], ds[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e / 2, c = e % 2;
+        float l, b, dl;
+        bool live;
+        if constexpr (DKV) {
+          l = col_a[n][c];
+          dl = col_b[n][c];
+          b = row_a[rr];
+          live = l > kSkipThreshold || p.fault == kFaultUnsafeP;
+        } else {
+          l = row_a[rr];
+          dl = row_b[rr];
+          b = col_a[n][c];
+          live = row_live[rr];
+        }
+        const float pv = live ? expf(s[n][e] * p.scale + b - l) : 0.0f;
+        pm[n][e] = pv;
+        ds[n][e] = round_to<T>(pv * (dp[n][e] - dl));
+      }
+    // K3a: dq += dS K; K3b: dk += dS^T Q, dv += P^T dO (this warp's share
+    // of the columns)
+    auto grads = [&](auto one) {
+      constexpr bool ONE = decltype(one)::value;
+      mm_cn_3xtf32<NT, NXD, LO_T, LO_T, ONE>(acc1, ds, sA, ldx, d0);
+      if constexpr (DKV) mm_cn_3xtf32<NT, NXV, true, true, ONE>(acc2, pm, sB, ldy, v0);
+    };
+    if (one_pass)
+      grads(std::true_type{});
+    else
+      grads(std::false_type{});
+  }
+  cp_async_wait<0>();
+
+  if constexpr (DKV) {
+    store_acc(p.gk + (bh * p.nk + r0) * d, d, acc1, 16 * rg, d0, nvalid, p.scale);
+    store_acc(p.gv + (bh * p.nk + (size_t)out_block * BR) * dv, dv, acc2, 16 * rg, v0,
+              min(nvalid, p.nk - out_block * BR), 1.0f);
+  } else {
+    store_acc(p.gq + (bh * p.nq + r0) * d, d, acc1, 16 * rg, d0, nvalid, p.scale);
+  }
+}
 
 }  // namespace flash

@@ -19,13 +19,15 @@ from det_sam2_tpu_torch.modeling.position_encoding import (
 
 
 class PositionEmbeddingRandom(nn.Module):
-    """Holds the random-Fourier gaussian matrix [2, F] (a buffer, as in the
-    SAM 2.1 checkpoint)."""
+    """Holds the random-Fourier gaussian matrix [2, F] as a parameter: the
+    JAX package trains it (``pe_gaussian``), so a finetune updates it here
+    too. Its state-dict key is the SAM 2.1 checkpoint's, where it is a
+    buffer, so strict loading is unchanged."""
 
     def __init__(self, num_pos_feats: int):
         super().__init__()
-        self.register_buffer("positional_encoding_gaussian_matrix",
-                             torch.randn(2, num_pos_feats))
+        self.positional_encoding_gaussian_matrix = nn.Parameter(
+            torch.randn(2, num_pos_feats))
 
 
 class PromptEncoder(nn.Module):

@@ -242,15 +242,39 @@ def flash_attention_fwd(
 # K3a / K3b: flash backward. Replace det_sam2_tpu/ops/attention.py:
 # _flash_bwd_dq_kernel and _flash_bwd_dkv_kernel (with their _nobias forms).
 # Bound by operations (2 * Nq * Nk * (2D + Dv) and 2 * Nq * Nk * (2D + 2Dv)
-# FLOPs over the live keys); the kernels recompute P from the saved lse one
-# key tile (K3a) or query tile (K3b) at a time, so neither the scores nor P
-# ever reach device memory (csrc/flash_bwd_dq.cu, flash_bwd_dkv.cu say more).
+# FLOPs over the live keys), taken on the tensor cores as 3xTF32 (three TF32
+# passes a product: 3 x FLOPs / 495 TFLOP/s); the kernels recompute P from
+# the saved lse one key tile (K3a) or query tile (K3b) at a time, so neither
+# the scores nor P ever reach device memory, and keep dq (dk, dv) in
+# registers (csrc/flash_bwd_dq.cu, flash_bwd_dkv.cu, flash_common.cuh).
 # ---------------------------------------------------------------------------
 
 # planted faults of the backward kernels (csrc/flash_common.cuh BwdFault),
 # for the checks that must catch them; production calls pass 0
 BWD_FAULTS = {"dq without the delta term": 1, "a live key tile skipped": 2,
-              "P not zeroed where lse <= -1e29": 3, "dv from the wrong tile": 4}
+              "P not zeroed where lse <= -1e29": 3, "dv from the wrong tile": 4,
+              "one TF32 pass": 5}
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 3xTF32 split of the backward kernels' fp32 operands, in plain
+    PyTorch: hi = x rounded to TF32 (10 mantissa bits; to nearest, ties away
+    from zero, by integer operations on the fp32 bits, as
+    csrc/flash_common.cuh:tf32_rna does), lo = (x - hi) rounded the same
+    way. x - hi is exact in fp32, so hi + lo = x to about 2^-22 relative
+    while x - hi stays a normal number. Returns (hi, lo), fp32; non-finite
+    x gives (x, 0)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        r = (bits + 0x1000) & 0xFFFFE000
+        r = torch.where(r >= 1 << 31, r - (1 << 32), r)  # back to int32's range
+        return r.to(torch.int32).view(torch.float32)
+
+    x = x.float()
+    finite = torch.isfinite(x)
+    hi = torch.where(finite, rna(torch.where(finite, x, 0.0)), x)
+    lo = torch.where(finite, rna(x - torch.where(finite, hi, 0.0)), 0.0)
+    return hi, lo
 
 
 def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout):
@@ -265,8 +289,10 @@ def flash_attention_bwd_ref(q, k, v, bias, out, lse, dout):
     return _bwd_ref(q, k, v, bias, lse, dout, (dout.float() * out.float()).sum(-1))
 
 
-def _bwd_ref(q, k, v, bias, lse, dout, delta):
-    """``flash_attention_bwd_ref`` given delta [BH, Nq] in place of out."""
+def _bwd_ref(q, k, v, bias, lse, dout, delta, mm=torch.matmul):
+    """``flash_attention_bwd_ref`` given delta [BH, Nq] in place of out. mm
+    takes every matrix product (the tests pass emulations of the kernels'
+    TF32 products)."""
     bh, nq, d = q.shape
     nk = k.shape[1]
     scale = 1.0 / d ** 0.5
@@ -275,17 +301,17 @@ def _bwd_ref(q, k, v, bias, lse, dout, delta):
     for i in range(0, bh, step):
         sl = slice(i, i + step)
         g = dout[sl].float()
-        s = torch.matmul(q[sl].float(), k[sl].float().transpose(-1, -2)) * scale
+        s = mm(q[sl].float(), k[sl].float().transpose(-1, -2)) * scale
         if bias is not None:
             s = s + bias[sl].float()[:, None, :]
         l = lse[sl].float()[..., None]
         p = torch.where(l > -1e29, torch.exp(s - l), torch.zeros_like(s))
-        ds = p * (torch.matmul(g, v[sl].float().transpose(-1, -2))
+        ds = p * (mm(g, v[sl].float().transpose(-1, -2))
                   - delta[sl].float()[..., None])
-        dq[sl] = (torch.matmul(ds.to(k.dtype).float(), k[sl].float()) * scale).to(q.dtype)
-        dk[sl] = (torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), q[sl].float())
+        dq[sl] = (mm(ds.to(k.dtype).float(), k[sl].float()) * scale).to(q.dtype)
+        dk[sl] = (mm(ds.to(q.dtype).float().transpose(-1, -2), q[sl].float())
                   * scale).to(k.dtype)
-        dv[sl] = torch.matmul(p.transpose(-1, -2), g).to(v.dtype)
+        dv[sl] = mm(p.transpose(-1, -2), g).to(v.dtype)
     return dq, dk, dv
 
 

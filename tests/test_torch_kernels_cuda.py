@@ -28,14 +28,18 @@ MAX_ULPS = {torch.bfloat16: 4, torch.float32: 1024}
 MEAN_EPS = {torch.bfloat16: 0.4, torch.float32: 64}
 
 
-def _assert_held(out, ref):
-    """out within chip_smoke.py's tolerance of ref (the rule above)."""
+def _errors(out, ref):
+    """(max error in ulps of max|ref|, mean error in eps * mean|ref|)."""
     eps = torch.finfo(out.dtype).eps
     diff = (out.float() - ref.float()).abs()
     mag = ref.float().abs()
     ulp = 2.0 ** math.floor(math.log2(float(mag.max()))) * eps
-    max_ulps = float(diff.max()) / ulp
-    mean_eps = float(diff.mean()) / (eps * float(mag.mean()))
+    return float(diff.max()) / ulp, float(diff.mean()) / (eps * float(mag.mean()))
+
+
+def _assert_held(out, ref):
+    """out within chip_smoke.py's tolerance of ref (the rule above)."""
+    max_ulps, mean_eps = _errors(out, ref)
     assert max_ulps <= MAX_ULPS[out.dtype], f"max error {max_ulps:.3g} ulps"
     assert mean_eps <= MEAN_EPS[out.dtype], f"mean error {mean_eps:.3g} eps"
 
@@ -208,3 +212,61 @@ def test_flash_function_backward_launches_k3_on_cuda(dev):
     ref = att.flash_attention(q, k, v, plain=True)
     for got, want in zip(grads, torch.autograd.grad(ref, (q, k, v), torch.ones_like(ref))):
         _assert_held(got, want)
+
+
+def _bwd_case(dt, dev, bh, nq, nk, d, dv, dead_rows=(), dead_keys=None, seed=20):
+    q, k, v, do = (_rand(s, seed + i).to(dev, dt) for i, s in enumerate(
+        [(bh, nq, d), (bh, nk, d), (bh, nk, dv), (bh, nq, dv)]))
+    bias = None
+    if dead_keys is not None or dead_rows:
+        bias = torch.zeros(bh, nk, device=dev)
+        if dead_keys is not None:
+            bias[:, dead_keys[0]:dead_keys[1]] = -1e30
+        for r in dead_rows:
+            bias[r] = -1e30
+    out, lse = att.flash_attention_ref(q, k, v, bias)
+    delta = (do.float() * out.float()).sum(-1)
+    return (q, k, v, bias, do, lse, delta), out
+
+
+# K3 shapes of the memory attention widths with ragged edges: (bh, nq, nk, D,
+# Dv, dead key range, dead rows): D = 256 with Dv = 64 (cross-attention) and
+# D = Dv = 256 (self-attention), Nq and Nk off every tile
+K3_WIDE = [(2, 200, 300, 256, 64, (100, 164), (1,)), (2, 150, 170, 256, 256, None, ())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", K3_WIDE, ids=lambda s: "x".join(map(str, s[:5])))
+def test_backward_kernels_wide_match_plain_on_cuda(dev, dtype, shape):
+    """K3a / K3b at D = 256 against flash_attention_bwd_ref; in fp32 the
+    planted one-TF32-pass fault (hi * hi alone) must fail the tolerance by
+    at least 7x, as in chip_smoke.py."""
+    dt = getattr(torch, dtype)
+    bh, nq, nk, d, dv, dead, rows = shape
+    args, out = _bwd_case(dt, dev, bh, nq, nk, d, dv, rows, dead)
+    refs = att.flash_attention_bwd_ref(*args[:4], out, args[5], args[4])
+    got = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+    for g, r in zip(got, refs):
+        assert bool(torch.isfinite(g).all())
+        _assert_held(g, r)
+    for r in rows:
+        assert all(bool((g[r] == 0).all()) for g in got)
+    if dt == torch.float32:
+        code = att.BWD_FAULTS["one TF32 pass"]
+        bad = (att.flash_bwd_dq(*args, fault=code),) + att.flash_bwd_dkv(*args, fault=code)
+        worst = max(max(e / gate for e, gate in zip(_errors(b, r), (MAX_ULPS[dt], MEAN_EPS[dt])))
+                    for b, r in zip(bad, refs))
+        assert worst >= 7, f"one TF32 pass reads {worst:.3g}x the tolerance"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_kernels_are_deterministic_on_cuda(dev, dtype):
+    """Two launches of K3a and of K3b on the same inputs give the same bits
+    (no atomics: every block owns its output rows)."""
+    dt = getattr(torch, dtype)
+    args, _ = _bwd_case(dt, dev, 2, 300, 700, 256, 64, dead_keys=(64, 96))
+    first = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+    second = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

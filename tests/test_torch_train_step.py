@@ -176,11 +176,11 @@ def test_mose_optimizer_step_matches_jax_and_optax(weights):
 
     want = convert.from_jax_params(jax.tree_util.tree_map(np.asarray, jgrads))
     named = dict(m.named_parameters())
-    # SAM 2.1 keeps the prompt encoder's random Fourier matrix as a buffer
-    # (the port too); the JAX package holds it as a parameter, so it has a
-    # gradient (and an update) there only
-    assert set(want) - set(named) == {
-        "sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"}
+    # every JAX parameter is one of the port's, the prompt encoder's random
+    # Fourier matrix (pe_gaussian) included: its gradient and its update are
+    # held against JAX's and optax's below like any other
+    assert set(want) == set(named)
+    assert named["sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"].grad is not None
     for n, p in named.items():
         w = want[n]
         tol = 2e-3 * float(w.abs().max()) + 1e-6
@@ -208,8 +208,9 @@ def test_mose_optimizer_step_matches_jax_and_optax(weights):
     before = convert.from_jax_params(weights)
     for n, p in named.items():
         torch.testing.assert_close(p.detach(), jnew[n], atol=1e-7, rtol=1e-6, msg=n)
-    assert not torch.equal(named["image_encoder.trunk.blocks.0.attn.qkv.weight"].detach(),
-                           before["image_encoder.trunk.blocks.0.attn.qkv.weight"])
+    for n in ("image_encoder.trunk.blocks.0.attn.qkv.weight",
+              "sam_prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"):
+        assert not torch.equal(named[n].detach(), before[n]), n
 
 
 def _heads_inputs():
