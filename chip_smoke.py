@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # four phases, one card
+    python3 chip_smoke.py            # five phases, one card
 
 Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
@@ -34,6 +34,20 @@ launches against the count the schedule implies. Then one step's gradients
 with the kernels against the plain forward and backward on the card, gated
 by the spread of two plain runs that differ only in rounding (TF32 on), and
 two sessions with a fault planted in K3's wrappers that must fail the gate.
+Phase 5 (video predictor): the user's entry point, SAM2VideoPredictor built
+by build_sam2_video_predictor from a seeded .pt (phase 2's weights), hiera-S
+1024^2 bf16, banked, over two seeded 720x1280 videos: boxes, propagation
+(the window path), update_state, a new object mid-stream (2 -> 4 object
+slots), release_old_frames, a mask prompt and reverse propagation,
+remove_object, save_session / load_session_as_preload and tracking on the
+preload bank. Checks: every yielded mask finite at video size, the K1 / K2
+launches the session implies, no unpinned frame below the release point in
+the bank and no growth of device memory across the release, the same session
+with every kernel's plain version (masks, pointers, memory cross-attention
+outputs at each K2 shape reached, every K2 call held in context), and an
+engine window against per-frame stream_steps leaving a bit-identical bank;
+prints window ms/frame, FPS, peak and released memory, and K2 / K1 at the
+new shapes against their plain versions.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -47,10 +61,12 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -840,29 +856,44 @@ PLANTED = ("K2 output zeroed", "K2 reads the slots rolled by one",
            "K2 leaves out the RoPE correction")
 
 
-def _session(eng, frames, banked: bool, check: bool = False, fault=None):
-    """A phase-3 session of N_CHECK stream_steps whose memory cross-attention
-    calls (K2 in banked mode, K1 in gather mode, or their plain versions)
-    go through a tap: it keeps each call's raw output P @ memory values
-    [B, Nq, Cm] in fp32 and, with check=True, holds it against the plain
-    version on the same inputs by phase 1's rule. fault plants a fault in
-    K2's wrapper. Returns (outputs, taps, held)."""
+@contextlib.contextmanager
+def _tapped(eng, check: bool = False, fault=None, keep=None):
+    """Route eng's memory cross-attention calls (K2 in banked mode, K1 in
+    gather mode, or their plain versions) through a tap: it keeps each
+    call's raw output P @ memory values [B, Nq, Cm] in fp32 and its shape
+    (B, K2's slot count; in gather mode B, the key count), and with
+    check=True holds the output against the plain version
+    on the same inputs by phase 1's rule. fault plants a fault in K2's
+    wrapper. keep (a dict) gets the inputs of the last K2 call of each
+    (B, slots) shape, its bank cut to the attended rows, and of the first
+    memory self-attention call of each batch size. Yields (taps, shapes,
+    held)."""
     from det_sam2_tpu_torch.modeling.layers import sdpa
     from det_sam2_tpu_torch.ops import attention as att
 
-    taps, held = [], []
-    mods = [layer.cross_attn_image for layer in eng.model.memory_attention.layers]
+    taps, shapes, held = [], [], []
+    layers = eng.model.memory_attention.layers
+    mods = [layer.cross_attn_image for layer in layers]
     saved = [(m.attention_fn, m.banked_attention_fn) for m in mods]
+    saved_self = [layer.self_attn.attention_fn for layer in layers]
     dense_fn, banked_fn = saved[0]
     if fault is not None:
         banked_fn = _planted_k2(fault)
 
     def banked_tap(q, mem_k, mem_v, slots, w, bias, cos, sin, layer):
         o = banked_fn(q, mem_k, mem_v, slots, w, bias, cos, sin, layer)
+        key = (q.shape[0], slots.shape[0])
+        if keep is not None:  # the last call of each shape: the fullest memory
+            rows = slots.long()  # the attended bank rows, in slot order
+            keep[("k2", key)] = (
+                q[:, 0].clone(), mem_k.index_select(0, rows), mem_v.index_select(0, rows),
+                torch.arange(len(rows), dtype=torch.int32, device=q.device), w.clone(),
+                bias.clone(), cos, sin, layer)
         if check:
             held.append(_held(o[:, 0], att.flash_attention_banked_ref(
                 q[:, 0], mem_k, mem_v, slots, w, bias, cos, sin, layer), q.dtype))
         taps.append(o[:, 0].float())
+        shapes.append(key)
         return o
 
     def dense_tap(q, k, v, bias=None):
@@ -870,15 +901,36 @@ def _session(eng, frames, banked: bool, check: bool = False, fault=None):
         if check:
             held.append(_held(o, sdpa(q, k, v, bias), q.dtype))
         taps.append(o[:, 0].float())
+        shapes.append((q.shape[0], k.shape[2]))
         return o
+
+    def self_tap(fn):
+        def tap(q, k, v, bias=None):
+            if keep is not None and ("k1_self", q.shape[0]) not in keep:
+                keep[("k1_self", q.shape[0])] = (q[:, 0].clone(), k[:, 0].clone(),
+                                                 v[:, 0].clone())
+            return fn(q, k, v, bias=bias)
+        return tap
 
     for m in mods:
         m.attention_fn, m.banked_attention_fn = dense_tap, banked_tap
+    for layer, fn in zip(layers, saved_self):
+        layer.self_attn.attention_fn = self_tap(fn)
     try:
-        outs, _ = run_session(eng, frames, banked, N_CHECK)
+        yield taps, shapes, held
     finally:
         for m, (a, b) in zip(mods, saved):
             m.attention_fn, m.banked_attention_fn = a, b
+        for layer, fn in zip(layers, saved_self):
+            layer.self_attn.attention_fn = fn
+
+
+def _session(eng, frames, banked: bool, check: bool = False, fault=None):
+    """A phase-3 session of N_CHECK stream_steps with its memory
+    cross-attention calls tapped (``_tapped``). Returns (outputs, taps,
+    held)."""
+    with _tapped(eng, check, fault) as (taps, _, held):
+        outs, _ = run_session(eng, frames, banked, N_CHECK)
     return outs, taps, held
 
 
@@ -1217,6 +1269,413 @@ def phase_train_checks(dev, state):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the video predictor (build -> init_state -> prompts -> propagate)
+# ---------------------------------------------------------------------------
+
+VP_HW = (720, 1280)  # the synthetic videos' height, width
+VP_FRAMES = 48  # frames of the first video
+VP_SECOND = 16  # frames of the second: 8 tracked on the preload bank, 8 more
+VP_STEPS = 8  # frames tracked in step 10 and in the window check
+VP_KEEP = 16  # release_old_frames(47, max_inference_state_frames=VP_KEEP)
+MEM_SLACK = 1 << 20  # bytes the allocated device memory may grow across a release
+# K1 launches of one image encode (hiera-S: 3 Hiera global blocks); of one
+# memory-conditioned frame, K1 (memory self-attention) and K2 (pre-pass and
+# main, memory cross-attention) once a memory-attention layer
+ENCODE_K1, TRACK_K1, TRACK_K2 = 3, 4, 4
+# (step, image encodes, memory-conditioned frames) of run_predictor_session
+VP_EXPECTED = (
+    ("init_state on frames 0-23: frame 0 encoded", 1, 0),
+    ("boxes for objects 1, 2 on frame 0: features cached, no memory read", 0, 0),
+    ("propagate 0-23: frame 0 is the cond frame, 23 tracked", 23, 23),
+    ("object 3 on frame 24: frame 0 re-consolidated, frame 24 encoded", 2, 0),
+    ("propagate 24-47: frame 24 is a cond frame, 23 tracked", 23, 23),
+    ("mask for object 1 on frame 40 (mask as output): frame 40 encoded", 1, 0),
+    ("propagate 40-33 in reverse: frame 40 is the cond frame, 7 tracked", 7, 7),
+    ("preload bank: propagate 48-55 of the second video", VP_STEPS, VP_STEPS),
+)
+# K2 shapes (objects, slots = attended cond tiles + 6 non-cond + staging)
+# the session must reach: 2 objects / 1 cond frame, 4 objects / 2 cond frames
+# (after object 3), 4 objects / 1 cond frame (after the release)
+VP_K2_SHAPES = {(2, 8), (4, 9), (4, 8)}
+# the frames each propagate_in_video call of the session yields
+VP_CALLS = [list(range(24)), list(range(24, 48)), list(range(40, 32, -1)),
+            list(range(48, 56))]
+
+
+def _rect(j, t):
+    """Object j's rectangle (x0, y0, x1, y1) in video pixels at frame t."""
+    x0, y0 = 80 + 380 * j + 4 * t, 60 + 200 * j + 2 * t
+    return x0, y0, x0 + 160, y0 + 120
+
+
+def synthetic_video(n, seed, start=0):
+    """n seeded RGB frames [720, 1280, 3] uint8: noise plus three bright
+    rectangles (objects 1-3) moving over the clip."""
+    rng = np.random.default_rng(seed)
+    colours = ((230, 60, 50), (50, 220, 80), (60, 90, 240))
+    frames = []
+    for i in range(n):
+        f = rng.integers(0, 100, VP_HW + (3,), dtype=np.uint8)
+        for j, c in enumerate(colours):
+            x0, y0, x1, y1 = _rect(j, start + i)
+            f[y0:y1, x0:x1] = c
+        frames.append(f)
+    return frames
+
+
+def seeded_state_dict(cfg):
+    """make_engine's weights as a SAM 2.1 state dict (fp32): the seeded
+    init, the object-score head's output bias +1, the temporal encodings
+    N(0, 1)."""
+    from det_sam2_tpu_torch import convert
+    from det_sam2_tpu_torch.modeling.sam2_base import SAM2Model
+
+    sd = convert.init_params(SAM2Model(cfg), 0)
+    sd["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(1.0)
+    g = torch.Generator().manual_seed(1)
+    sd["maskmem_tpos_enc"] = torch.randn(sd["maskmem_tpos_enc"].shape, generator=g)
+    return sd
+
+
+def _propagate(vp, s, rec, label, **kw):
+    """One propagate_in_video call: the host time spent inside the
+    generator, the frames yielded, whether every mask is finite at [O_bucket,
+    1, 720, 1280], and the stored low-res masks and pointers of the active
+    objects (for the comparison of two sessions)."""
+    active = sorted(s.obj_idx_to_id)
+    gen = vp.propagate_in_video(s, **kw)
+    host, frames, good, outs = 0.0, [], True, []
+    while True:
+        t0 = time.perf_counter()
+        item = next(gen, None)
+        host += time.perf_counter() - t0
+        if item is None:
+            break
+        f, _, m = item
+        frames.append(f)
+        good &= m.shape == (s.bank_objs, 1) + VP_HW and bool(np.isfinite(m).all())
+        out = s.cond_outputs[f] if f in s.cond_outputs else s.noncond_outputs[f]
+        outs.append({"pred_masks": torch.from_numpy(out["pred_masks"][active]).float(),
+                     "obj_ptr": torch.from_numpy(out["obj_ptr"][active]).float()})
+    rec["calls"].append(dict(label=label, ms=host * 1e3, frames=frames, good=good,
+                             outs=outs, objects=s.bank_objs,
+                             cond_tiles=s.bank.attend_cond_tiles))
+
+
+def run_predictor_session(vp, video, video2, workdir, rec):
+    """Phase 5's session on predictor vp, in order: init_state on frames
+    0-23; boxes for objects 1 and 2 on frame 0; propagate 0-23 (the window
+    path); update_state with 24-47; a box for a new object 3 on frame 24
+    (2 -> 4 object slots, re-consolidation); propagate 24-47; release frames
+    0-31 (images too); a mask for object 1 on frame 40, propagate back over
+    8 frames; remove object 2; save_session, load_session_as_preload,
+    update_state with the second video, propagate 8 of its frames. rec gets
+    each call's record (``_propagate``) and the memory and bank around the
+    release. Returns the preload session."""
+    rec.setdefault("calls", [])
+    dev = vp.engine.device
+    s = vp.init_state(video[:24])
+    vp.add_new_points_or_box(s, 0, 1, box=_rect(0, 0))
+    vp.add_new_points_or_box(s, 0, 2, box=_rect(1, 0))
+    _propagate(vp, s, rec, "0-23")
+    vp.update_state(video[24:], s)
+    vp.add_new_points_or_box(s, 24, 3, box=_rect(2, 24))
+    _propagate(vp, s, rec, "24-47", start_frame_idx=24)
+    _sync(dev)
+    rec["mem_before"] = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    vp.release_old_frames(s, VP_FRAMES - 1, VP_KEEP, release_images=True)
+    _sync(dev)
+    rec["mem_after"] = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    b = s.bank
+    rec["released"] = dict(cond=b.cond_frame_idx.tolist(), pinned=b.cond_pinned.tolist(),
+                           noncond=b.noncond_frame_idx.tolist(),
+                           frames_dev=sorted(s.frames_dev))
+    mask = np.zeros(VP_HW, bool)
+    x0, y0, x1, y1 = _rect(0, 40)
+    mask[y0:y1, x0:x1] = True
+    vp.add_new_mask(s, 40, 1, mask)
+    _propagate(vp, s, rec, "40-33 reverse", start_frame_idx=40,
+               max_frame_num_to_track=VP_STEPS, reverse=True)
+    vp.remove_object(s, 2)
+    path = os.path.join(workdir, "session.pkl")
+    vp.save_session(s, path)
+    s2 = vp.load_session_as_preload(path)
+    os.remove(path)
+    vp.update_state(video2, s2)
+    # forward, SAM 2 tracks max_frame_num_to_track frames after the start
+    _propagate(vp, s2, rec, "48-55 preload", start_frame_idx=VP_FRAMES,
+               max_frame_num_to_track=VP_STEPS - 1)
+    return s2
+
+
+def window_equals_stream_steps(vp, s) -> bool:
+    """engine.propagate_window over VP_STEPS frames against as many
+    stream_steps on a copy of the same bank: both run the same per-frame
+    code, so the banks must end bit for bit equal."""
+    eng = vp.engine
+    first = VP_FRAMES + VP_STEPS
+    idx = list(range(first, first + VP_STEPS))
+    frames = [torch.as_tensor(s.frames[t]).to(eng.device) for t in idx]
+    valid = vp._active_mask(s)
+    bank = s.bank
+    copy = dataclasses.replace(bank, **{
+        f.name: getattr(bank, f.name).clone() for f in dataclasses.fields(bank)
+        if torch.is_tensor(getattr(bank, f.name))})
+    eng.propagate_window(frames, bank, idx, [False] * VP_STEPS, s.num_frames,
+                         obj_valid=valid)
+    for f, t in zip(frames, idx):
+        eng.stream_step(f[None], copy, t, s.num_frames, obj_valid=valid)
+    differ = [f.name for f in dataclasses.fields(bank)
+              if torch.is_tensor(getattr(bank, f.name))
+              and not torch.equal(getattr(bank, f.name), getattr(copy, f.name))]
+    log(f"[predictor] engine.propagate_window over frames {idx[0]}-{idx[-1]} vs "
+        f"{VP_STEPS} stream_steps on a copy of the bank: "
+        + ("banks bit-identical OK" if not differ else f"fields differ {differ} FAIL"))
+    return not differ
+
+
+def _k2_rows(key, args, results, gpu) -> bool:
+    """K2 at a shape the predictor gave it, on that call's inputs (the bank
+    cut to the attended rows): the pre-pass must equal its plain version
+    bit for bit and the main kernel must hold against its plain version on
+    the plain keys; both timed and bounded as in phase 1, one kernel-table
+    row each."""
+    from det_sam2_tpu_torch.ops import attention as att
+
+    q, mem_k, mem_v, slots, w, bias, cos, sin, layer = args
+    b, t = key
+    s, d, cm, dtype = mem_k.shape[3], q.shape[-1], mem_v.shape[-1], q.dtype
+    s_pad = -(-s // att.K2_TILE) * att.K2_TILE
+    kargs = (mem_k, slots, w, cos, sin, layer, s_pad)
+    keys = att.flash_banked_keys(*kargs)
+    keys_ref = att.banked_keys(mem_k, slots, w, cos, sin, layer, dtype, s_pad)
+    margs = (q, keys_ref, mem_v, slots, bias)
+    out = att.flash_banked_attend(*margs)
+    h = _held(out, att.flash_banked_attend_ref(*margs), dtype)
+    exact = bool(torch.equal(keys, keys_ref))
+    live = int((bias > -1e29).sum())
+    flops = 2.0 * q.shape[1] * live * (d + cm)
+    b_main, by_main = bound_ms(flops, nbytes(q, bias, out) + live * (d + cm) * q.element_size(),
+                               dtype)
+    b_keys, by_keys = bound_ms(0.0, t * b * s * d * q.element_size()
+                               + nbytes(cos, sin, w, keys), dtype)
+    ms_main = time_ms(lambda: att.flash_banked_attend(*margs), 20)
+    ms_keys = time_ms(lambda: att.flash_banked_keys(*kargs), 20)
+    plain_main = time_ms(lambda: att.flash_banked_attend_ref(*margs), 3, 1)
+    plain_keys = time_ms(lambda: att.banked_keys(mem_k, slots, w, cos, sin, layer, dtype,
+                                                 s_pad), 3, 1)
+    good = h["good"] and exact
+    log(f"[predictor] ({gpu}) K2 at {b} objects, {t} slots, q{list(q.shape)} "
+        f"{str(dtype)[6:]}, {live} live keys: main {_fmt(h)} ms {ms_main:.4f} plain_ms "
+        f"{plain_main:.4f} bound_ms {b_main:.4f} ({by_main}); pre-pass bit-exact "
+        f"{exact} ms {ms_keys:.4f} plain_ms {plain_keys:.4f} bound_ms {b_keys:.4f} "
+        f"({by_keys}) {'OK' if good else 'FAIL'}")
+    shape = dict(q=list(q.shape), keys=list(keys.shape), mem_v=[t] + list(mem_v.shape[1:]),
+                 slots=t)
+    label = f"predictor_{b}obj_{t}slots"
+    for name, src, err, ms, plain, bnd, by in (
+            ("flash_banked_fwd", K2_SRC, h["err"], ms_main, plain_main, b_main, by_main),
+            ("flash_banked_keys", K2_KEYS_SRC, float((keys.float() - keys_ref.float()).abs()
+                                                     .max()), ms_keys, plain_keys, b_keys,
+             by_keys)):
+        results.append(dict(
+            name=f"{name}:{label}", route="cuda", source=src, replaces=K2_TPU,
+            kernel=name, path="predictor", dtype=str(dtype)[6:], shape=shape,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            bound_scheme=("bf16 tensor cores: FLOPs / 989 TFLOP/s" if by == "operations"
+                          else "memory: bytes / 3.35 TB/s"), library_ms=None))
+    return good
+
+
+def _k1_row(args, results, gpu) -> bool:
+    """K1 at the predictor's memory self-attention shape (4 objects), on
+    that call's inputs: held, timed against plain and sdpa, bounded."""
+    from det_sam2_tpu_torch.ops import attention as att
+
+    q, k, v = args
+    dtype = q.dtype
+    out, lse = att.flash_attention_fwd(q, k, v)
+    h = _held(out, att.flash_attention_ref(q, k, v)[0], dtype)
+    bh, nq, d = q.shape
+    flops = 2.0 * nq * bh * k.shape[1] * (d + v.shape[-1])
+    bnd, by = bound_ms(flops, nbytes(q, k, v, out, lse), dtype)
+    ms = time_ms(lambda: att.flash_attention_fwd(q, k, v), 20)
+    plain = time_ms(lambda: att.flash_attention_ref(q, k, v), 3, 1)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None],
+                                                         v[:, None]), 20)
+    log(f"[predictor] ({gpu}) K1 memory self-attn q{list(q.shape)} {str(dtype)[6:]}: "
+        f"{_fmt(h)} ms {ms:.4f} plain_ms {plain:.4f} sdpa_ms {lib:.4f} bound_ms {bnd:.4f} "
+        f"({by}) {'OK' if h['good'] else 'FAIL'}")
+    results.append(dict(
+        name=f"flash_fwd:memory_self_attn_predictor_{bh}obj", route="cuda", source=K1_SRC,
+        replaces=K1_TPU, kernel="flash_fwd", path="predictor", dtype=str(dtype)[6:],
+        shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape), bias=None),
+        max_abs_err=h["err"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+        bound_scheme="bf16 tensor cores: FLOPs / 989 TFLOP/s", library_ms=lib))
+    return h["good"]
+
+
+def _timed_windows(eng, rec):
+    """Time each engine.propagate_window call on the host clock (the card
+    synchronised before and after), with its count of frames run."""
+    orig = eng.propagate_window
+
+    def timed(images, bank, frame_indices, skips, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(images, bank, frame_indices, skips, *a, **kw)
+        torch.cuda.synchronize()
+        rec["windows"].append(((time.perf_counter() - t0) * 1e3, len(skips) - sum(skips)))
+        return out
+
+    rec["windows"] = []
+    eng.propagate_window = timed
+
+
+def phase_predictor(dev, results):
+    """Phase 5. Returns (ok, launches of the session)."""
+    from det_sam2_tpu_torch.build import build_sam2_video_predictor
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.utils.misc import resize_masks_np
+
+    cfg = sam2_1_hiera_s()
+    gpu = gpu_line()
+    video = synthetic_video(VP_FRAMES, 0)
+    video2 = synthetic_video(VP_SECOND, 1, start=VP_FRAMES)
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    ok = True
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        ckpt = os.path.join(work, "sam2.1_hiera_s_seeded.pt")
+        torch.save({"model": seeded_state_dict(cfg)}, ckpt)
+
+        def predictor(plain: bool):
+            vp = build_sam2_video_predictor(cfg, ckpt, plain_kernels=plain)
+            # step 7 releases both earlier cond frames: the mask on the
+            # tracked frame 40 must be a cond frame for step 8 to propagate
+            vp.add_all_frames_to_correct_as_cond = True
+            return vp
+
+        # the kernels' session: counts, times, memory
+        vp = predictor(False)
+        eng = vp.engine
+        rec = {}
+        _timed_windows(eng, rec)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        s2 = run_predictor_session(vp, video, video2, work, rec)
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del eng.propagate_window
+        ok &= window_equals_stream_steps(vp, s2)
+        del s2
+
+        # the checks' sessions: kernels with every K2 call held in context,
+        # then every kernel replaced by its plain version
+        keep = {}
+        with _tapped(eng, check=True, keep=keep) as (taps, shapes, held):
+            rec_k = {}
+            run_predictor_session(vp, video, video2, work, rec_k)
+        del vp, eng
+        plain_vp = predictor(True)
+        with _tapped(plain_vp.engine) as (plain_taps, plain_shapes, _):
+            rec_p = {}
+            run_predictor_session(plain_vp, video, video2, work, rec_p)
+        del plain_vp
+
+    calls = rec["calls"]
+    good_masks = all(c["good"] for c in calls) and [c["frames"] for c in calls] == VP_CALLS
+    log(f"[predictor] ({gpu}) hiera-S {cfg.image_size}^2 bf16, banked, built by "
+        f"build_sam2_video_predictor from a seeded .pt; video {VP_HW[0]}x{VP_HW[1]}, "
+        f"{VP_FRAMES} + {VP_SECOND} frames; session {wall:.2f} s, peak_mem "
+        f"{peak / 2 ** 30:.3f} GiB; every yielded mask finite at [O_bucket, 1, "
+        f"{VP_HW[0]}, {VP_HW[1]}] and the frames of each call as expected: {good_masks}")
+    ok &= good_masks
+    run = sum(n for _, n in rec["windows"])
+    win_ms = sum(ms for ms, _ in rec["windows"]) / max(run, 1)
+    for c, (ms, n) in zip(calls, rec["windows"]):
+        log(f"[predictor] ({gpu}) propagate {c['label']}: {c['objects']} object slots, "
+            f"{c['cond_tiles']} attended cond tiles, {len(c['frames'])} frames yielded, "
+            f"{n} run; engine window {ms / n:.3f} ms/frame ({1e3 * n / ms:.2f} FPS); "
+            f"propagate_in_video {c['ms'] / len(c['frames']):.3f} ms/frame "
+            f"(download, stores, video-res resize on the host included)")
+    log(f"[predictor] ({gpu}) engine window over all {run} frames run: "
+        f"{win_ms:.3f} ms/frame, FPS {1e3 / win_ms:.2f}")
+    masks = np.random.default_rng(0).standard_normal((4, 1, 256, 256)).astype(np.float32)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        resize_masks_np(masks, VP_HW)
+    log(f"[predictor] ({gpu}) host part of propagate_in_video: resize_masks_np of one "
+        f"frame's 4 masks 256^2 -> {VP_HW[0]}x{VP_HW[1]} "
+        f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+    if len(rec["windows"]) != len(calls):
+        log("[predictor] a propagation did not take the window path FAIL")
+        ok = False
+
+    enc = sum(e for _, e, _ in VP_EXPECTED)
+    trk = sum(t for _, _, t in VP_EXPECTED)
+    want = {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
+            "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for step, e, t in VP_EXPECTED:
+        log(f"[predictor]   expected: {step}: {e} encodes, {t} memory-conditioned frames")
+    good = launches == want
+    log(f"[predictor] ({gpu}) launches in the session {launches}, expected {want} "
+        f"({enc} encodes x {ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, "
+        f"x {TRACK_K2} K2) {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    r = rec["released"]
+    low = [t for t, p in zip(r["cond"], r["pinned"]) if 0 <= t < VP_FRAMES - VP_KEEP and not p]
+    low += [t for t in r["noncond"] if 0 <= t < VP_FRAMES - VP_KEEP]
+    grew = rec["mem_after"] - rec["mem_before"]
+    good = not low and grew <= MEM_SLACK and min(r["frames_dev"]) >= VP_FRAMES - VP_KEEP
+    log(f"[predictor] ({gpu}) release_old_frames({VP_FRAMES - 1}, {VP_KEEP}, "
+        f"release_images=True): bank frames cond {sorted(t for t in r['cond'] if t >= 0)} "
+        f"non-cond {sorted(t for t in r['noncond'] if t >= 0)}, unpinned below "
+        f"{VP_FRAMES - VP_KEEP}: {low}; device frames kept {r['frames_dev'][0]}-"
+        f"{r['frames_dev'][-1]}; allocated {rec['mem_before'] / 2 ** 30:.4f} -> "
+        f"{rec['mem_after'] / 2 ** 30:.4f} GiB ({grew / 2 ** 20:+.1f} MiB, slack "
+        f"{MEM_SLACK / 2 ** 20:g} MiB) {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    # plain kernels vs kernels: masks / pointers per call, the taps per K2
+    # shape, every K2 call held in context
+    for ck, cp in zip(rec_k["calls"], rec_p["calls"]):
+        ok &= _compare(f"predictor {ck['label']}: plain kernels vs kernels", cp["outs"],
+                       ck["outs"])
+    reached = set(shapes)
+    good = shapes == plain_shapes and VP_K2_SHAPES <= reached
+    log(f"[checks] predictor K2 shapes (objects, slots) reached {sorted(reached)}, "
+        f"required {sorted(VP_K2_SHAPES)}, same in both sessions {shapes == plain_shapes} "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    for key in sorted(reached):
+        idx = [i for i, sh in enumerate(shapes) if sh == key]
+        if len(plain_taps) == len(taps):
+            ok &= _taps_agree(f"predictor K2 at {key[0]} objects, {key[1]} slots: plain "
+                              f"vs kernels", [plain_taps[i] for i in idx],
+                              [taps[i] for i in idx])
+    ok &= _held_in_context("predictor, kernels", held)
+    del taps, plain_taps
+    for key in sorted(k for k in keep if k[0] == "k2"):
+        ok &= _k2_rows(key[1], keep[key], results, gpu)
+    if ("k1_self", 4) in keep:
+        ok &= _k1_row(keep[("k1_self", 4)], results, gpu)
+    else:
+        log("[predictor] no memory self-attention call at 4 objects FAIL")
+        ok = False
+    del keep
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -1304,13 +1763,20 @@ def main() -> int:
     log(f"[time] phase 4 (training path) {time.time() - t_phase:.1f} s")
     t_phase = time.time()
     ok &= phase_train_checks(dev, train_state)
+    del train_state
+    torch.cuda.empty_cache()
     log(f"[time] phase 4 checks {time.time() - t_phase:.1f} s")
-    counts = {"serving": serving, "training": training}
+    t_phase = time.time()
+    ok_vp, predictor = phase_predictor(dev, results)
+    ok &= ok_vp
+    log(f"[time] phase 5 (video predictor) {time.time() - t_phase:.1f} s ({gpu_line()})")
+    counts = {"serving": serving, "training": training, "predictor": predictor}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
     for path, names in (("serving", serving_kernels),
-                        ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
+                        ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                        ("predictor", serving_kernels)):
         for name in names:
             if counts[path][name] <= 0:
                 log(f"[main] kernel {name} was not launched by the {path} path")

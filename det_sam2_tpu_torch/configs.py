@@ -250,6 +250,14 @@ def sam2_1_hiera_l(**kw) -> SAM2Config:
     return _cfg_from_hiera(_hiera_l(), **kw)
 
 
+MODEL_CONFIGS = {
+    "hiera_t": sam2_1_hiera_t,
+    "hiera_s": sam2_1_hiera_s,
+    "hiera_b+": sam2_1_hiera_bplus,
+    "hiera_l": sam2_1_hiera_l,
+}
+
+
 def with_image_size(cfg: SAM2Config, size: int) -> SAM2Config:
     """The same model at another input resolution: the RoPE grid tracks
     image_size / backbone_stride."""

@@ -10,8 +10,10 @@ tensors and integer bookkeeping, so every step has the same shapes:
 
 Slot choice and memory selection are tensor arithmetic on the bank's device
 (no host round trip). Unlike the JAX package, whose jitted steps donate the
-bank and return a new one, the writers here update the bank's tensors IN
-PLACE (``index_copy_``) and return the same object.
+bank and return a new one, the writers and bank operations here update the
+bank's tensors IN PLACE (``index_copy_``, ``masked_fill_``) and return the
+same object; only ``grow_objects``, which changes the object axis, returns a
+new bank.
 """
 
 from __future__ import annotations
@@ -108,6 +110,40 @@ def next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def cond_tile_bucket(cfg: SAM2Config, live_cond: int) -> int:
+    """Power-of-two bucket (capped at capacity) for the attended cond-tile
+    count."""
+    cap = min(cfg.cond_attn_size, cfg.cond_bank_size)
+    return min(next_pow2(min(max(live_cond, 1), cap)), cap)
+
+
+def grow_objects(bank: MemoryBank, new_num_objects: int) -> MemoryBank:
+    """Pad the object axis (a new object mid-stream). Returns a NEW bank (the
+    object axis changes shape); the new rows hold zeros / False."""
+    o = bank.num_objects
+    if new_num_objects <= o:
+        return bank
+    pad = new_num_objects - o
+
+    def _pad(x):
+        if x is None:
+            return None
+        # F.pad lists the last axis first: pad axis 1 at its end
+        return torch.nn.functional.pad(x, [0, 0] * (x.ndim - 2) + [0, pad])
+
+    return dataclasses.replace(
+        bank,
+        cond_mem=_pad(bank.cond_mem),
+        cond_ptr=_pad(bank.cond_ptr),
+        cond_obj_valid=_pad(bank.cond_obj_valid),
+        noncond_mem=_pad(bank.noncond_mem),
+        noncond_ptr=_pad(bank.noncond_ptr),
+        noncond_obj_valid=_pad(bank.noncond_obj_valid),
+        mem_k=_pad(bank.mem_k),
+        mem_v=_pad(bank.mem_v),
+    )
+
+
 def _choose_write_slot(frame_idx_vec, pinned, frame_idx: int):
     """match > first empty > temporally-furthest unpinned (furthest pinned
     when every slot is pinned). Returns (slot [1] int64, had_match 0-d)."""
@@ -176,6 +212,76 @@ def write_noncond(bank: MemoryBank, frame_idx: int, mem: torch.Tensor,
     _set_row(bank.noncond_ptr, slot, ptr)
     _set_row(bank.noncond_frame_idx, slot, frame_idx)
     _set_row(bank.noncond_obj_valid, slot, obj_valid)
+    return bank
+
+
+def clear_object_rows(bank: MemoryBank, obj_idx: int) -> MemoryBank:
+    """Invalidate every memory row of one object slot (remove_object), so a
+    later object reusing the slot never attends the removed one's memories."""
+    bank.cond_obj_valid[:, obj_idx] = False
+    bank.noncond_obj_valid[:, obj_idx] = False
+    return bank
+
+
+def release_frames(bank: MemoryBank, min_keep_idx,
+                   max_keep_idx=None) -> MemoryBank:
+    """Invalidate unpinned slots with frame_idx < min_keep_idx (and, given
+    max_keep_idx, > max_keep_idx): the fork's release_old_frames. Pinned
+    (preload) cond slots survive."""
+
+    def _drop(vec, pinned):
+        drop = (vec >= 0) & (vec < min_keep_idx) & ~pinned
+        if max_keep_idx is not None:
+            drop |= (vec >= 0) & (vec > max_keep_idx) & ~pinned
+        vec.masked_fill_(drop, INVALID)
+
+    _drop(bank.cond_frame_idx, bank.cond_pinned)
+    _drop(bank.noncond_frame_idx, torch.zeros_like(bank.noncond_frame_idx,
+                                                   dtype=torch.bool))
+    return bank
+
+
+def invalidate_noncond(bank: MemoryBank, frame_idx) -> MemoryBank:
+    """Drop a frame from the non-cond bank (a frame is never both cond and
+    non-cond)."""
+    bank.noncond_frame_idx.masked_fill_(bank.noncond_frame_idx == frame_idx,
+                                        INVALID)
+    return bank
+
+
+def remove_cond_frame(bank: MemoryBank, frame_idx) -> MemoryBank:
+    match = bank.cond_frame_idx == frame_idx
+    bank.cond_frame_idx.masked_fill_(match, INVALID)
+    bank.cond_pinned.masked_fill_(match, False)
+    return bank
+
+
+def demote_cond_frame(bank: MemoryBank, frame_idx: int) -> MemoryBank:
+    """Move a frame's memory from the cond bank to the non-cond bank
+    (clear_all_prompts_in_frame's demotion); a no-op when the frame is not
+    a cond frame. One host read (whether it is), off the propagation path."""
+    match = bank.cond_frame_idx == frame_idx
+    if not bool(match.any()):
+        return bank
+    slot = match.int().argmax().reshape(1)
+    # index_select copies: in banked mode the write below goes into the same
+    # mem_k tensor the row is read from
+    write_noncond(
+        bank, frame_idx, bank.cond_mem.index_select(0, slot)[0],
+        bank.cond_ptr.index_select(0, slot)[0],
+        # carry per-object validity: all-valid would resurrect freed objects
+        obj_valid=bank.cond_obj_valid.index_select(0, slot)[0],
+        mem_k=None if bank.mem_k is None else bank.mem_k.index_select(0, slot)[0],
+    )
+    return remove_cond_frame(bank, frame_idx)
+
+
+def clear_noncond_around(bank: MemoryBank, frame_idx: int,
+                         radius: int) -> MemoryBank:
+    """Drop non-cond memories within +-radius of a correction frame
+    (_clear_non_cond_mem_around_input)."""
+    vec = bank.noncond_frame_idx
+    vec.masked_fill_((vec >= 0) & ((vec - frame_idx).abs() <= radius), INVALID)
     return bank
 
 

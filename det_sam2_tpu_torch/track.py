@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``track.py`` (``SAM2Engine``), eager
 PyTorch: each public method runs the model on the engine's device and
 updates the caller's MemoryBank in place (see ``state.py``). Signatures and
 output dict keys are the JAX engine's. Inputs may be numpy arrays or
-tensors; outputs are tensors on the engine's device.
+tensors; outputs are tensors on the engine's device. ``propagate_window``,
+the JAX engine's window ``lax.scan``, is a loop over stream_step's
+per-frame code.
 
 Attention routing on the main path: Hiera global blocks and memory
 self-attention go to K1 (``ops.attention.flash_attention``); memory
@@ -14,6 +16,7 @@ cross-attention goes to K1 with a bias (gather mode) or to K2
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -57,6 +60,19 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     if img.dtype == torch.uint8:
         return img
     return img.float()
+
+
+def _fill_stacked(cfg: SAM2Config, low: torch.Tensor) -> torch.Tensor:
+    """Hole filling over a window's stacked fp16 mask logits [T, O, 1, s4,
+    s4], in fp32, a chunk of frames at a time (the chunk bounds the stencil's
+    working set), returned in fp16: the JAX window's order of rounding (fp16
+    first, then the fill). Skip-step rows are all-zero planes, one background
+    component larger than fill_hole_area, so the fill leaves them alone."""
+    if cfg.fill_hole_area <= 0 or low.shape[0] == 0:
+        return low
+    chunk = max(1, 8 // max(low.shape[1], 1))
+    return torch.cat([_maybe_fill_holes(cfg, c.float()).half()
+                      for c in low.split(chunk)])
 
 
 def _broadcast_feats(feats, o: int):
@@ -156,15 +172,19 @@ class SAM2Engine:
 
     def __init__(self, cfg: SAM2Config, params: Optional[dict] = None,
                  dtype: torch.dtype = torch.float32, device=None, seed: int = 0,
-                 plain_kernels: bool = False):
+                 plain_kernels: bool = False, banked: Optional[bool] = None):
         """params: a state dict in the SAM 2.1 layout (e.g.
         ``convert.from_jax_params``), or None for the seeded random init.
         device: None = CUDA (raises without a card). plain_kernels=True
         computes every kernel's plain PyTorch version instead of launching
-        it: the reference run of a session."""
+        it: the reference run of a session. banked: the banks this engine
+        makes (``banked_layers``) carry the banked-attention caches; None =
+        on CUDA only (the JAX package's DET_SAM2_BANKED_ATTN=0|1 as an
+        argument)."""
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
+        self.banked = banked
         if plain_kernels:
             attn_fn, banked_fn = attention.plain_attention_fns()
         else:
@@ -186,11 +206,14 @@ class SAM2Engine:
         """Memory-attention layer count for the banked-attention caches
         (``state.init_bank(banked_layers=)``), or 0 for the gather path. On
         by default on CUDA when the worst-case obj-ptr token count fits one
-        staging tile."""
+        staging tile; ``banked=True`` asks for it on any device and raises
+        when the tokens do not fit."""
         lay = memory_layout(self.cfg)  # full-capacity cond tiles
-        if self.device.type == "cuda" and lay.num_ptr_tokens <= lay.tokens_per_tile:
-            return self.cfg.memory_attention.num_layers
-        return 0
+        fits = lay.num_ptr_tokens <= lay.tokens_per_tile
+        if self.banked and not fits:
+            raise ValueError("banked attention needs the obj-ptr tokens to fit one tile")
+        on = self.device.type == "cuda" if self.banked is None else self.banked
+        return self.cfg.memory_attention.num_layers if on and fits else 0
 
     def _t(self, x, dtype=None) -> torch.Tensor:
         t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
@@ -209,8 +232,10 @@ class SAM2Engine:
         feat_s1, feat), NHWC."""
         return self.model.forward_image(normalize_image(self._t(img)))
 
-    def _track(self, feats, bank, frame_idx, num_frames, reverse, obj_valid):
-        """Memory read -> SAM heads -> memory write (in place) -> outputs."""
+    def _track(self, feats, bank, frame_idx, num_frames, reverse, obj_valid,
+               fill: bool = True):
+        """Memory read -> SAM heads -> memory write (in place) -> outputs
+        (pred_masks hole-filled unless fill=False)."""
         cfg, m = self.cfg, self.model
         o = bank.num_objects
         s0, s1, feat = _broadcast_feats(feats, o)
@@ -226,7 +251,7 @@ class SAM2Engine:
                       obj_valid=self._obj_valid(obj_valid, o),
                       mem_k=_memk(m, bank, smem))
         return bank, {
-            "pred_masks": _maybe_fill_holes(cfg, low_res),
+            "pred_masks": _maybe_fill_holes(cfg, low_res) if fill else low_res,
             "obj_ptr": obj_ptr,
             "object_score_logits": obj_logits,
             "ious": ious,
@@ -245,9 +270,8 @@ class SAM2Engine:
                     num_frames: int, reverse: bool = False, obj_valid=None):
         """img [1, H, W, 3] -> (bank, outputs): image encode + track +
         memory write, the streaming hot path."""
-        feats = self.model.forward_image(normalize_image(self._t(img)))
-        return self._track(feats, bank, int(frame_idx), int(num_frames),
-                           bool(reverse), obj_valid)
+        return self._track(self.encode_image(img), bank, int(frame_idx),
+                           int(num_frames), bool(reverse), obj_valid)
 
     @torch.no_grad()
     def prompt_step(self, feats, bank: MemoryBank, frame_idx: int,
@@ -320,3 +344,104 @@ class SAM2Engine:
         return self._encode(feats, bank, frame_idx, low_res_masks,
                             object_score_logits, obj_ptr, bool(is_mask_from_pts),
                             obj_valid, to_cond=False)
+
+    @torch.no_grad()
+    def mask_prompt_step(self, feats, bank: Optional[MemoryBank], frame_idx: int,
+                         num_frames: int, mask_inputs, is_init: bool,
+                         reverse: bool = False) -> dict:
+        """SAM outputs for a mask prompt; no memory is written. mask_inputs
+        [O, H, W, 1] binary float at model resolution. With
+        cfg.use_mask_input_as_output_without_sam the mask itself is the
+        output (no memory read: the bank may be None, as it may when
+        is_init); otherwise it is the SAM heads' dense prompt on the
+        memory-conditioned features."""
+        cfg, m = self.cfg, self.model
+        mask_inputs = self._t(mask_inputs, torch.float32)
+        s0, s1, feat = _broadcast_feats(feats, mask_inputs.shape[0])
+        if cfg.use_mask_input_as_output_without_sam:
+            outs = m.use_mask_as_output(feat, [s0, s1], mask_inputs)
+        else:
+            pix = _conditioned_features(m, cfg, feat, bank, int(frame_idx),
+                                        int(num_frames), bool(reverse), bool(is_init))
+            outs = m.forward_sam_heads(
+                pix, mask_inputs=mask_inputs, high_res_features=[s0, s1],
+                multimask_output=use_multimask(cfg, bool(is_init), 0))
+        (_, _, ious, low_res, _, obj_ptr, obj_logits) = outs
+        return {
+            "pred_masks": _maybe_fill_holes(cfg, low_res),
+            "obj_ptr": obj_ptr,
+            "object_score_logits": obj_logits,
+            "ious": ious,
+        }
+
+    @torch.no_grad()
+    def attach_bank_caches(self, bank: MemoryBank) -> MemoryBank:
+        """The bank with its banked-attention caches (mem_k / mem_v) rebuilt
+        from the stored memories on the engine's device, or with none when
+        the engine runs the gather path. Used after a bank is loaded:
+        save_session strips the caches, which are derived state. Returns a
+        new bank sharing the memory tensors."""
+        nl = self.banked_layers
+        if nl == 0:
+            return dataclasses.replace(bank, mem_k=None, mem_v=None)
+        mems = torch.cat([bank.cond_mem, bank.noncond_mem])  # [K, O, S, Cm]
+        k, o, s, cm = mems.shape
+        mk = self.model.project_memory_k(mems.reshape(k * o, s, cm))
+        mk = mk.reshape(k, o, nl, s, -1).to(mems.dtype)
+        # + the per-frame obj-ptr staging row
+        return dataclasses.replace(
+            bank, mem_k=torch.cat([mk, mk.new_zeros((1,) + mk.shape[1:])]),
+            mem_v=torch.cat([mems, mems.new_zeros((1,) + mems.shape[1:])]))
+
+    @torch.no_grad()
+    def propagate_window(self, images, bank: MemoryBank, frame_indices, skips,
+                         num_frames: int, reverse: bool = False, obj_valid=None,
+                         img_idx=None):
+        """Track a window of frames: for each step, the same per-frame code
+        as stream_step (encode + track + memory write into the bank, in
+        place), except that the mask logits are kept in fp16 and hole-filled
+        once over the whole window (``_fill_stacked``).
+
+        images: the frames to RUN (an [N, H, W, 3] uint8 tensor or array, or
+        a sequence of [H, W, 3] frames); frame_indices, skips [T] (host
+        values); img_idx [T] maps each step to its row of images (None =
+        identity). A skip step does no inference, writes nothing and returns
+        zero rows. Returns (bank, (pred_masks [T, O, 1, s4, s4] fp16, obj_ptr
+        [T, O, C] fp32, object_score_logits [T, O, 1] fp32)), on the engine's
+        device: nothing is read back to the host."""
+        cfg, dev = self.cfg, self.device
+        frame_indices = np.asarray(frame_indices).tolist()
+        skips = np.asarray(skips, bool).tolist()
+        t = len(frame_indices)
+        img_idx = list(range(t)) if img_idx is None else np.asarray(img_idx).tolist()
+        o, s4 = bank.num_objects, cfg.image_size // 4
+        valid = self._obj_valid(obj_valid, o)  # uploaded once a window
+        low = torch.zeros((t, o, 1, s4, s4), dtype=torch.float16, device=dev)
+        ptr = torch.zeros((t, o, cfg.hidden_dim), dtype=torch.float32, device=dev)
+        logits = torch.zeros((t, o, 1), dtype=torch.float32, device=dev)
+        for i in range(t):
+            if skips[i]:
+                continue
+            feats = self.encode_image(images[img_idx[i]][None])
+            _, out = self._track(feats, bank, frame_indices[i], int(num_frames),
+                                 bool(reverse), valid, fill=False)
+            low[i] = out["pred_masks"]  # rounded to fp16 before the fill
+            ptr[i] = out["obj_ptr"]
+            logits[i] = out["object_score_logits"]
+        return bank, (_fill_stacked(cfg, low), ptr, logits)
+
+    @torch.no_grad()
+    def resize_masks(self, masks, out_hw) -> torch.Tensor:
+        """Low-res logits [..., h, w] -> [..., H, W] on the engine's device:
+        bilinear, align_corners=False (SAM 2's video-resolution output)."""
+        return resize_bilinear(self._t(masks), (int(out_hw[0]), int(out_hw[1])))
+
+    def empty_mask_ptr(self, feats, frame_idx: int = 0) -> torch.Tensor:
+        """The object pointer [1, C] of an empty mask on this frame's
+        features: the placeholder pointer of an object with no output on a
+        consolidated frame."""
+        s = self.cfg.image_size
+        zeros = torch.zeros((1, s, s, 1), dtype=torch.float32, device=self.device)
+        out = self.mask_prompt_step(tuple(f[:1] for f in feats), None, frame_idx,
+                                    1, zeros, is_init=True)
+        return out["obj_ptr"]

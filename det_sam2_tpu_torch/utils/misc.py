@@ -1,0 +1,279 @@
+"""Host-side frame I/O and mask utilities of the video predictor.
+
+The port's own copy of what the predictor uses from the JAX package's
+``utils/misc.py``, with no optional package on the frame path: frames are
+resized with a torch bilinear on the CPU (half-pixel centres, no antialias,
+rounded to uint8) instead of cv2 / PIL, PIL is imported only to decode image
+files, and cv2 only to decode video files. Frames are stored as resized
+uint8 [image_size, image_size, 3]; the patch embed normalises them.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
+
+
+def _load_image_file(path: str, image_size: int) -> Tuple[np.ndarray, int, int]:
+    """Decode an image file with PIL -> (resized uint8 frame, height, width)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"decoding {path} needs Pillow (PIL), which is not installed; pass "
+            "the frames as ndarrays instead"
+        ) from e
+    with Image.open(path) as im:
+        img = np.asarray(im.convert("RGB"))
+    h, w = img.shape[:2]
+    return prepare_frame(img, image_size), h, w
+
+
+def prepare_frame(frame_rgb: np.ndarray, image_size: int) -> np.ndarray:
+    """One RGB frame [H, W, 3] -> resized uint8 [image_size, image_size, 3]:
+    bilinear with half-pixel centres and no antialias (cv2.resize's
+    INTER_LINEAR, within one level), rounded. Float frames are accepted in
+    [0, 1] or [0, 255]."""
+    if frame_rgb.dtype != np.uint8:
+        frame_rgb = np.asarray(frame_rgb, np.float32)
+        if frame_rgb.size and float(frame_rgb.max()) <= 1.0:
+            frame_rgb = frame_rgb * 255.0
+        frame_rgb = np.clip(frame_rgb, 0, 255).astype(np.uint8)
+    x = torch.tensor(frame_rgb).permute(2, 0, 1)[None]  # a copy: may be read-only
+    y = F.interpolate(x.float(), size=(image_size, image_size), mode="bilinear",
+                      align_corners=False)
+    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def list_frame_dir(video_path: str) -> List[str]:
+    """A JPEG / PNG frame directory in frame-number order (int-named
+    stems)."""
+    names = [
+        p
+        for p in os.listdir(video_path)
+        if os.path.splitext(p)[-1].lower() in (".jpg", ".jpeg", ".png")
+    ]
+    names.sort(key=lambda p: int(os.path.splitext(p)[0]))
+    if not names:
+        raise RuntimeError(f"no frames found in {video_path}")
+    return [os.path.join(video_path, n) for n in names]
+
+
+def load_video_frames(
+    video_path: Union[str, List, np.ndarray],
+    image_size: int,
+) -> Tuple[List[np.ndarray], int, int]:
+    """JPEG / PNG dir, list of paths, single image path, single ndarray
+    frame, [N, H, W, 3] ndarray stack, list of ndarray frames, or video file
+    (needs cv2) -> (list of resized uint8 HWC frames, video height, video
+    width)."""
+    if isinstance(video_path, np.ndarray):
+        if video_path.ndim == 4:  # [N, H, W, 3] frame stack
+            h, w = video_path.shape[1:3]
+            return [prepare_frame(f, image_size) for f in video_path], h, w
+        h, w = video_path.shape[:2]
+        return [prepare_frame(video_path, image_size)], h, w
+
+    if isinstance(video_path, list) and video_path and isinstance(
+        video_path[0], np.ndarray
+    ):
+        h, w = video_path[0].shape[:2]
+        return [prepare_frame(f, image_size) for f in video_path], h, w
+
+    if isinstance(video_path, list):
+        img_paths = list(video_path)
+    elif isinstance(video_path, str) and os.path.isdir(video_path):
+        img_paths = list_frame_dir(video_path)
+    elif isinstance(video_path, str) and os.path.isfile(video_path):
+        if os.path.splitext(video_path)[-1].lower() in VIDEO_EXTENSIONS:
+            return _load_video_file(video_path, image_size)
+        img_paths = [video_path]
+    else:
+        raise NotImplementedError(f"unsupported video input: {type(video_path)}")
+
+    frames = []
+    h = w = None
+    for p in img_paths:
+        arr, h, w = _load_image_file(p, image_size)
+        frames.append(arr)
+    return frames, h, w
+
+
+def _load_video_file(path: str, image_size: int):
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"decoding the video file {path} needs cv2, which is not installed; "
+            "pass a frame directory or ndarray frames instead"
+        ) from e
+    cap = cv2.VideoCapture(path)
+    frames = []
+    h = w = None
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+        if h is None:
+            h, w = rgb.shape[:2]
+        frames.append(prepare_frame(rgb, image_size))
+    cap.release()
+    if not frames:
+        raise RuntimeError(f"no frames decoded from {path}")
+    return frames, h, w
+
+
+def concat_points(old, points: np.ndarray, labels: np.ndarray):
+    """Merge point prompts. old is None or a dict."""
+    if old is None:
+        return {"point_coords": points, "point_labels": labels}
+    return {
+        "point_coords": np.concatenate([old["point_coords"], points], axis=1),
+        "point_labels": np.concatenate([old["point_labels"], labels], axis=1),
+    }
+
+
+def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """1-D bilinear resize matrix [out_size, in_size] of
+    F.interpolate(mode="bilinear", align_corners=False), no antialias."""
+    w = np.zeros((out_size, in_size), dtype=np.float64)
+    if in_size == out_size:
+        np.fill_diagonal(w, 1.0)
+        return w.astype(np.float32)
+    scale = in_size / out_size
+    for i in range(out_size):
+        center = (i + 0.5) * scale - 0.5
+        xs = int(np.floor(center)) + np.arange(2, dtype=np.float64)
+        ws = np.clip(1.0 - np.abs(xs - center), 0.0, None)
+        s = ws.sum()
+        if s != 0:
+            ws = ws / s
+        for t in range(2):
+            w[i, int(np.clip(xs[t], 0, in_size - 1))] += ws[t]
+    return w.astype(np.float32)
+
+
+_RESIZE_TAPS: dict = {}
+
+
+def _bilinear_taps(src: int, dst: int):
+    """(i0, i1, w0, w1) per output position: bilinear rows have at most two
+    nonzero weights."""
+    key = (src, dst)
+    taps = _RESIZE_TAPS.get(key)
+    if taps is None:
+        w = _bilinear_weights(src, dst)  # [dst, src]
+        order = np.argsort(-w, axis=1)[:, :2]
+        i0, i1 = order[:, 0], order[:, 1]
+        rows = np.arange(dst)
+        taps = (
+            i0, i1,
+            w[rows, i0].astype(np.float32)[:, None],
+            w[rows, i1].astype(np.float32)[:, None],
+        )
+        _RESIZE_TAPS[key] = taps
+    return taps
+
+
+def resize_masks_np(masks: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Host bilinear resize (align_corners=False) of mask logits [..., h, w]
+    -> [..., H, W]: a separable 2-tap gather with F.interpolate's weights."""
+    h, w = masks.shape[-2:]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if (h, w) == (oh, ow):
+        return masks
+    lead = masks.shape[:-2]
+    flat = masks.reshape(-1, h, w).astype(np.float32)
+    j0, j1, v0, v1 = _bilinear_taps(w, ow)
+    x = flat[:, :, j0] * v0[:, 0] + flat[:, :, j1] * v1[:, 0]
+    i0, i1, u0, u1 = _bilinear_taps(h, oh)
+    out = x[:, i0, :] * u0 + x[:, i1, :] * u1
+    return out.reshape(*lead, oh, ow)
+
+
+class AsyncFrameLoader:
+    """Background-thread frame preparation: image paths or RGB ndarrays,
+    resized on a daemon thread ahead of consumption; indexed access blocks
+    only until the requested frame is ready."""
+
+    def __init__(self, sources, image_size: int, prefetch: int = 64):
+        import threading
+
+        self.sources = list(sources)
+        self.image_size = image_size
+        self.prefetch = prefetch
+        self._frames: dict = {}
+        self._cond = threading.Condition()
+        self._error = None
+        self._max_requested = 0
+        self.video_height = None
+        self.video_width = None
+        if self.sources:
+            first = self._load(0)
+            with self._cond:
+                self._frames[0] = first
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _load(self, idx: int) -> np.ndarray:
+        src = self.sources[idx]
+        if isinstance(src, np.ndarray):
+            if self.video_height is None:
+                self.video_height, self.video_width = src.shape[:2]
+            return prepare_frame(src, self.image_size)
+        # the eager loader's decode and resize: async loading changes the
+        # schedule, not the pixels
+        arr, h, w = _load_image_file(src, self.image_size)
+        if self.video_height is None:
+            self.video_height, self.video_width = h, w
+        return arr
+
+    def _worker(self):
+        try:
+            for i in range(len(self.sources)):
+                if i in self._frames:
+                    continue
+                # at most `prefetch` frames ahead of the furthest request;
+                # loaded frames stay cached for random access
+                with self._cond:
+                    while (
+                        i > self._max_requested + self.prefetch
+                        and self._error is None
+                    ):
+                        self._cond.wait(timeout=5)
+                frame = self._load(i)
+                with self._cond:
+                    self._frames[i] = frame
+                    self._cond.notify_all()
+        except Exception as e:  # surfaced on next access
+            with self._cond:
+                self._error = e
+                self._cond.notify_all()
+
+    def __len__(self):
+        return len(self.sources)
+
+    def __getitem__(self, idx: int) -> np.ndarray:
+        if not (0 <= idx < len(self.sources)):
+            raise IndexError(
+                f"frame {idx} out of range [0, {len(self.sources)})"
+            )
+        with self._cond:
+            if idx > self._max_requested:
+                self._max_requested = idx
+                self._cond.notify_all()  # wake the worker's prefetch gate
+            while idx not in self._frames and self._error is None:
+                self._cond.wait(timeout=30)
+            if self._error is not None:
+                raise self._error
+            return self._frames[idx]
+
+    def to_list(self):
+        return [self[i] for i in range(len(self))]

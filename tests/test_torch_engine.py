@@ -149,21 +149,28 @@ def test_engine_does_not_fall_back_to_cpu():
 
 
 def test_port_imports_no_jax():
+    """Every submodule imports without JAX or the JAX package, and with
+    neither cv2 nor PIL importable (the frame path needs no optional
+    package)."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.modules['cv2'] = sys.modules['PIL'] = None  # import raises\n"
         "import det_sam2_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'det_sam2_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('det_sam2_tpu_torch')]))\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('det_sam2_tpu_torch')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 21  # every submodule, training/ too
+    mods = res.stdout.split()
+    assert len(mods) >= 29  # every submodule, training/ and utils/ too
+    for m in ("utils.misc", "video_predictor", "build"):
+        assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 
 def test_point_prompt_track_step_and_noncond_write_match_jax(setup):

@@ -126,6 +126,48 @@ def test_k2_prepass_is_exact_on_cuda(dev, dtype):
     assert bool((got.reshape(2, 4, 128, -1)[:, 1] == 0).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b, cond_tiles", [(4, 2), (4, 1), (2, 1), (4, 4)],
+                         ids=lambda x: str(x))
+def test_k2_at_video_predictor_shapes_on_cuda(dev, dtype, b, cond_tiles):
+    """K2 at the video predictor's shapes: 2 or 4 object slots, 1, 2 or 4
+    attended cond tiles (slots = cond tiles + 6 non-cond + the staging row),
+    at the serving widths (S = 4096, D = 256, Cm = 64, 4 layers), with an
+    object slot no object holds (every key dead), a dead non-cond tile and
+    64 live pointer tokens in the staging tile. The pre-pass equals its
+    plain version bit for bit; the whole K2 holds against its plain
+    version."""
+    from det_sam2_tpu_torch.modeling.position_encoding import axial_rope_cos_sin
+
+    dt = getattr(torch, dtype)
+    nq, s, d, cm, nl, ktot, layer = 1024, 4096, 256, 64, 4, 12, 3
+    t = cond_tiles + 6 + 1
+    g = torch.Generator(device=dev).manual_seed(7 + b + t)
+    q = torch.randn(b, nq, d, generator=g, device=dev).to(dt)
+    mem_k = torch.randn(ktot, b, nl, s, d, generator=g, device=dev).to(dt)
+    mem_v = torch.randn(ktot, b, s, cm, generator=g, device=dev).to(dt)
+    slots = torch.tensor(list(range(cond_tiles)) + [4, 5, 6, 7, 8, 9, ktot - 1],
+                         dtype=torch.int32, device=dev)
+    w = torch.randn(t, d, generator=g, device=dev)
+    w[-1] = 0.0  # the staging tile is not rotated
+    cos, sin = (torch.as_tensor(x, device=dev) for x in axial_rope_cos_sin(d, 64, 64))
+    live = torch.ones(b, t, s, dtype=torch.bool, device=dev)
+    live[:, -1, 64:] = False  # 64 pointer tokens in the staging tile
+    live[0, cond_tiles + 2] = False  # a non-cond tile object 0 misses
+    live[b - 1] = False  # a slot no object holds
+    bias = torch.where(live, 0.0, -1e30).reshape(b, t * s)
+    before = dict(att.LAUNCHES)
+    out = att.flash_attention_banked_fwd(q, mem_k, mem_v, slots, w, bias, cos, sin, layer)
+    for name in ("flash_banked_keys", "flash_banked_fwd"):
+        assert att.LAUNCHES[name] == before[name] + 1, name
+    ref = att.flash_attention_banked_ref(q, mem_k, mem_v, slots, w, bias, cos, sin, layer)
+    _assert_held(out, ref)
+    assert bool((out[b - 1] == 0).all())
+    keys = att.flash_banked_keys(mem_k, slots, w, cos, sin, layer, s)
+    assert torch.equal(keys, att.banked_keys(mem_k, slots, w, cos, sin, layer, dt, s))
+
+
 # K1 shapes that take the forward's other compile-time paths: (bh, nq, nk,
 # D, Dv) with one consumer warpgroup and more blocks than SMs, four V panels
 # (Dv = 256), six depth steps (D = 96), and fp32's 32-key tiles (D = 256)
