@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # five phases, one card
+    python3 chip_smoke.py            # seven phases, one card
 
 Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
@@ -48,6 +48,27 @@ outputs at each K2 shape reached, every K2 call held in context), and an
 engine window against per-frame stream_steps leaving a bit-identical bank;
 prints window ms/frame, FPS, peak and released memory, and K2 / K1 at the
 new shapes against their plain versions.
+Phase 6 (the Det-SAM2 application): VideoProcessor at its defaults (buffer
+30, detect every 30, reverse propagation over 60, keep 60) on phase 5's
+predictor over a seeded synthetic billiards stream (1080x1920, six pockets
+at the postprocessor's anchors, four moving balls, frames from a
+generator) with a synthetic detector reporting the true boxes: 240 frames,
+8 flushes. Checks: K1 / K2 launches as the schedule implies, allocated
+device memory after each release flat from the third on (1 MiB slack),
+frames held bounded, a bool mask per ball per frame, the pockets collected,
+the balls prompted; then 90 frames with every K2 call held in context
+against a plain-kernel processor, a planted K2 fault that must fail, and
+DetSAM2Pipeline over 120 frames whose threaded postprocessor must equal a
+synchronous one over the segments it handed off. Prints ms/frame, FPS, the
+processor's stats, the host mask resize's share, peak and allocated memory.
+Phase 7 (the image predictor and AMG): build_sam2 from the same .pt,
+seeded 720x1280 images: set_image and predict (box, clicks, mask input,
+multimask on and off), set_image_batch of 4 (one encode: K1 at [16, 4096,
+96]) and predict_batch, and SAM2AutomaticMaskGenerator with its defaults,
+with crop_n_layers=1 and with thresholds at 0; K1 launches 3 an encode
+call, every Hiera global K1 call held in context, features, masks and
+scores against a plain-kernel predictor, a planted K1 fault that must
+fail. Prints ms per set_image and predict, s per AMG image, peak memory.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -943,10 +964,10 @@ def _taps_agree(label, ref, got) -> bool:
     return good
 
 
-def _held_in_context(label, held) -> bool:
+def _held_in_context(label, held, calls="memory cross-attention calls") -> bool:
     good = all(h["good"] for h in held)
     worst = max(held, key=lambda h: max(h["max_ulps"], h["mean_eps"]))
-    log(f"[checks] {label}: {len(held)} memory cross-attention calls held against "
+    log(f"[checks] {label}: {len(held)} {calls} held against "
         f"the plain version on the same inputs, worst {_fmt(worst)} "
         f"{'OK' if good else 'FAIL'}")
     return good
@@ -1434,7 +1455,7 @@ def window_equals_stream_steps(vp, s) -> bool:
     return not differ
 
 
-def _k2_rows(key, args, results, gpu) -> bool:
+def _k2_rows(key, args, results, gpu, path="predictor") -> bool:
     """K2 at a shape the predictor gave it, on that call's inputs (the bank
     cut to the attended rows): the pre-pass must equal its plain version
     bit for bit and the main kernel must hold against its plain version on
@@ -1465,14 +1486,14 @@ def _k2_rows(key, args, results, gpu) -> bool:
     plain_keys = time_ms(lambda: att.banked_keys(mem_k, slots, w, cos, sin, layer, dtype,
                                                  s_pad), 3, 1)
     good = h["good"] and exact
-    log(f"[predictor] ({gpu}) K2 at {b} objects, {t} slots, q{list(q.shape)} "
+    log(f"[{path}] ({gpu}) K2 at {b} objects, {t} slots, q{list(q.shape)} "
         f"{str(dtype)[6:]}, {live} live keys: main {_fmt(h)} ms {ms_main:.4f} plain_ms "
         f"{plain_main:.4f} bound_ms {b_main:.4f} ({by_main}); pre-pass bit-exact "
         f"{exact} ms {ms_keys:.4f} plain_ms {plain_keys:.4f} bound_ms {b_keys:.4f} "
         f"({by_keys}) {'OK' if good else 'FAIL'}")
     shape = dict(q=list(q.shape), keys=list(keys.shape), mem_v=[t] + list(mem_v.shape[1:]),
                  slots=t)
-    label = f"predictor_{b}obj_{t}slots"
+    label = f"{path}_{b}obj_{t}slots"
     for name, src, err, ms, plain, bnd, by in (
             ("flash_banked_fwd", K2_SRC, h["err"], ms_main, plain_main, b_main, by_main),
             ("flash_banked_keys", K2_KEYS_SRC, float((keys.float() - keys_ref.float()).abs()
@@ -1480,16 +1501,16 @@ def _k2_rows(key, args, results, gpu) -> bool:
              by_keys)):
         results.append(dict(
             name=f"{name}:{label}", route="cuda", source=src, replaces=K2_TPU,
-            kernel=name, path="predictor", dtype=str(dtype)[6:], shape=shape,
+            kernel=name, path=path, dtype=str(dtype)[6:], shape=shape,
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
             bound_scheme=("bf16 tensor cores: FLOPs / 989 TFLOP/s" if by == "operations"
                           else "memory: bytes / 3.35 TB/s"), library_ms=None))
     return good
 
 
-def _k1_row(args, results, gpu) -> bool:
-    """K1 at the predictor's memory self-attention shape (4 objects), on
-    that call's inputs: held, timed against plain and sdpa, bounded."""
+def _k1_row(args, results, gpu, label, path="predictor") -> bool:
+    """K1 at a shape a path gave it (no bias), on that call's inputs: held,
+    timed against plain and sdpa, bounded; one kernel-table row."""
     from det_sam2_tpu_torch.ops import attention as att
 
     q, k, v = args
@@ -1503,12 +1524,12 @@ def _k1_row(args, results, gpu) -> bool:
     plain = time_ms(lambda: att.flash_attention_ref(q, k, v), 3, 1)
     lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None],
                                                          v[:, None]), 20)
-    log(f"[predictor] ({gpu}) K1 memory self-attn q{list(q.shape)} {str(dtype)[6:]}: "
+    log(f"[{path}] ({gpu}) K1 {label} q{list(q.shape)} {str(dtype)[6:]}: "
         f"{_fmt(h)} ms {ms:.4f} plain_ms {plain:.4f} sdpa_ms {lib:.4f} bound_ms {bnd:.4f} "
         f"({by}) {'OK' if h['good'] else 'FAIL'}")
     results.append(dict(
-        name=f"flash_fwd:memory_self_attn_predictor_{bh}obj", route="cuda", source=K1_SRC,
-        replaces=K1_TPU, kernel="flash_fwd", path="predictor", dtype=str(dtype)[6:],
+        name=f"flash_fwd:{label}", route="cuda", source=K1_SRC,
+        replaces=K1_TPU, kernel="flash_fwd", path=path, dtype=str(dtype)[6:],
         shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape), bias=None),
         max_abs_err=h["err"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
         bound_scheme="bf16 tensor cores: FLOPs / 989 TFLOP/s", library_ms=lib))
@@ -1532,7 +1553,15 @@ def _timed_windows(eng, rec):
     eng.propagate_window = timed
 
 
-def phase_predictor(dev, results):
+def write_seeded_checkpoint(cfg, workdir) -> str:
+    """seeded_state_dict(cfg) saved as a SAM 2.1 .pt under workdir: the
+    weights that every predictor phases 5-7 build from it loads."""
+    ckpt = os.path.join(workdir, "sam2.1_hiera_s_seeded.pt")
+    torch.save({"model": seeded_state_dict(cfg)}, ckpt)
+    return ckpt
+
+
+def phase_predictor(dev, results, work, ckpt):
     """Phase 5. Returns (ok, launches of the session)."""
     from det_sam2_tpu_torch.build import build_sam2_video_predictor
     from det_sam2_tpu_torch.configs import sam2_1_hiera_s
@@ -1543,50 +1572,45 @@ def phase_predictor(dev, results):
     gpu = gpu_line()
     video = synthetic_video(VP_FRAMES, 0)
     video2 = synthetic_video(VP_SECOND, 1, start=VP_FRAMES)
-    build_dir = Path(__file__).resolve().parent / "build"
-    build_dir.mkdir(exist_ok=True)
     ok = True
-    with tempfile.TemporaryDirectory(dir=build_dir) as work:
-        ckpt = os.path.join(work, "sam2.1_hiera_s_seeded.pt")
-        torch.save({"model": seeded_state_dict(cfg)}, ckpt)
 
-        def predictor(plain: bool):
-            vp = build_sam2_video_predictor(cfg, ckpt, plain_kernels=plain)
-            # step 7 releases both earlier cond frames: the mask on the
-            # tracked frame 40 must be a cond frame for step 8 to propagate
-            vp.add_all_frames_to_correct_as_cond = True
-            return vp
+    def predictor(plain: bool):
+        vp = build_sam2_video_predictor(cfg, ckpt, plain_kernels=plain)
+        # step 7 releases both earlier cond frames: the mask on the
+        # tracked frame 40 must be a cond frame for step 8 to propagate
+        vp.add_all_frames_to_correct_as_cond = True
+        return vp
 
-        # the kernels' session: counts, times, memory
-        vp = predictor(False)
-        eng = vp.engine
-        rec = {}
-        _timed_windows(eng, rec)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        att.reset_launch_counts()
-        t0 = time.perf_counter()
-        s2 = run_predictor_session(vp, video, video2, work, rec)
-        torch.cuda.synchronize()
-        launches = dict(att.LAUNCHES)
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        del eng.propagate_window
-        ok &= window_equals_stream_steps(vp, s2)
-        del s2
+    # the kernels' session: counts, times, memory
+    vp = predictor(False)
+    eng = vp.engine
+    rec = {}
+    _timed_windows(eng, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    s2 = run_predictor_session(vp, video, video2, work, rec)
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del eng.propagate_window
+    ok &= window_equals_stream_steps(vp, s2)
+    del s2
 
-        # the checks' sessions: kernels with every K2 call held in context,
-        # then every kernel replaced by its plain version
-        keep = {}
-        with _tapped(eng, check=True, keep=keep) as (taps, shapes, held):
-            rec_k = {}
-            run_predictor_session(vp, video, video2, work, rec_k)
-        del vp, eng
-        plain_vp = predictor(True)
-        with _tapped(plain_vp.engine) as (plain_taps, plain_shapes, _):
-            rec_p = {}
-            run_predictor_session(plain_vp, video, video2, work, rec_p)
-        del plain_vp
+    # the checks' sessions: kernels with every K2 call held in context,
+    # then every kernel replaced by its plain version
+    keep = {}
+    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held):
+        rec_k = {}
+        run_predictor_session(vp, video, video2, work, rec_k)
+    del vp, eng
+    plain_vp = predictor(True)
+    with _tapped(plain_vp.engine) as (plain_taps, plain_shapes, _):
+        rec_p = {}
+        run_predictor_session(plain_vp, video, video2, work, rec_p)
+    del plain_vp
 
     calls = rec["calls"]
     good_masks = all(c["good"] for c in calls) and [c["frames"] for c in calls] == VP_CALLS
@@ -1666,11 +1690,683 @@ def phase_predictor(dev, results):
     for key in sorted(k for k in keep if k[0] == "k2"):
         ok &= _k2_rows(key[1], keep[key], results, gpu)
     if ("k1_self", 4) in keep:
-        ok &= _k1_row(keep[("k1_self", 4)], results, gpu)
+        ok &= _k1_row(keep[("k1_self", 4)], results, gpu,
+                      "memory_self_attn_predictor_4obj")
     else:
         log("[predictor] no memory self-attention call at 4 objects FAIL")
         ok = False
     del keep
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Det-SAM2 application (VideoProcessor, DetSAM2Pipeline)
+# ---------------------------------------------------------------------------
+
+APP_HW = (1080, 1920)  # the frame size DEFAULT_HOLE_ANCHORS are drawn for
+APP_FRAMES = 240  # 8 buffer flushes at VideoProcessor's defaults
+APP_CHECK = 90  # frames of the in-context and plain-kernel passes (3 flushes)
+APP_FAULT = 30  # frames of the planted-fault pass (one flush)
+APP_PIPE = 120  # frames of the pipeline run
+APP_PIPE_KEEP = 60  # its max_inference_state_frames (the pipeline's own default is 2000)
+BALLS = (16, 1, 2, 3)  # detector classes = object ids; 16 is the white ball
+POCKET_CLASS = 11
+BALL_COLOURS = {16: (235, 235, 230), 1: (230, 200, 40), 2: (40, 70, 210), 3: (200, 40, 40)}
+
+
+def _anchors(hw):
+    from det_sam2_tpu_torch.app.postprocess import DEFAULT_HOLE_ANCHORS
+
+    sy, sx = hw[0] / APP_HW[0], hw[1] / APP_HW[1]
+    return {k: (x * sx, y * sy) for k, (x, y) in DEFAULT_HOLE_ANCHORS.items()}
+
+
+def billiards_track(n, seed, hw=APP_HW):
+    """Ball centres [n, 4, 2] (x, y) of a seeded game: each ball starts at a
+    seeded spot with a seeded velocity (6-14 px a frame at 1920 wide) and
+    reflects off the cushions, which run a ball's radius inside the corner
+    pockets' anchors."""
+    a = _anchors(hw)
+    r = ball_radius(hw)
+    lo = np.asarray([a["left_up"][0], a["left_up"][1]]) + 2 * r
+    hi = np.asarray([a["right_down"][0], a["right_down"][1]]) - 2 * r
+    rng = np.random.default_rng(seed)
+    pos = lo + rng.uniform(0.2, 0.8, (len(BALLS), 2)) * (hi - lo)
+    ang = rng.uniform(0, 2 * np.pi, len(BALLS))
+    vel = np.stack([np.cos(ang), np.sin(ang)], 1) * rng.uniform(6, 14, (len(BALLS), 1))
+    vel *= hw[1] / APP_HW[1]
+    out = np.zeros((n, len(BALLS), 2))
+    for t in range(n):
+        out[t] = pos
+        pos = pos + vel
+        for d in range(2):
+            low, high = pos[:, d] < lo[d], pos[:, d] > hi[d]
+            pos[low, d] = 2 * lo[d] - pos[low, d]
+            pos[high, d] = 2 * hi[d] - pos[high, d]
+            vel[low | high, d] *= -1
+    return out
+
+
+def ball_radius(hw):
+    return max(2, round(22 * hw[1] / APP_HW[1]))
+
+
+def pocket_boxes(hw):
+    r = 2 * ball_radius(hw)
+    return [(x - r, max(y - r, 0), x + r, y + r) for x, y in _anchors(hw).values()]
+
+
+def billiards_frames(n, seed, hw=APP_HW):
+    """A generator of n seeded RGB frames [H, W, 3] uint8: a noisy green
+    table, six dark pockets at the anchors, four balls moving on
+    billiards_track(n, seed)."""
+    track = billiards_track(n, seed, hw)
+    rng = np.random.default_rng(seed + 1)
+    h, w = hw
+    table = rng.integers(0, 40, (h, w, 3), dtype=np.uint8)
+    table += np.asarray([20, 100, 50], np.uint8)
+    yy, xx = np.ogrid[:h, :w]
+    for x0, y0, x1, y1 in pocket_boxes(hw):
+        cx, cy, rr = (x0 + x1) / 2, (y0 + y1) / 2, (x1 - x0) / 2
+        table[(xx - cx) ** 2 + (yy - cy) ** 2 <= rr ** 2] = (10, 10, 10)
+    r = ball_radius(hw)
+    dy, dx = np.nonzero((np.arange(-r, r + 1)[:, None] ** 2
+                         + np.arange(-r, r + 1)[None] ** 2) <= r * r)
+    dy, dx = dy - r, dx - r
+    for t in range(n):
+        f = table.copy()
+        for (cx, cy), ball in zip(track[t], BALLS):
+            ys = np.clip(int(round(cy)) + dy, 0, h - 1)
+            xs = np.clip(int(round(cx)) + dx, 0, w - 1)
+            f[ys, xs] = BALL_COLOURS[ball]
+        yield f
+
+
+def billiards_detector(n, seed, hw=APP_HW):
+    """A CallableDetector that reports each ball's true box (class = ball
+    id, confidence 0.99) and the six pocket boxes (class 11, 0.9)."""
+    from det_sam2_tpu_torch.app.detector import CallableDetector
+
+    track = billiards_track(n, seed, hw)
+    r = ball_radius(hw)
+
+    def detect(frame, idx):
+        dets = [(cx - r, cy - r, cx + r, cy + r, ball, 0.99)
+                for (cx, cy), ball in zip(track[idx], BALLS)]
+        return dets + [(*box, POCKET_CLASS, 0.9) for box in pocket_boxes(hw)]
+    return CallableDetector(detect)
+
+
+def app_expected(n, buffer, interval, track):
+    """(image encodes, memory-conditioned frames) that VideoProcessor's
+    schedule implies over n frames when every detect frame prompts the same
+    objects: each flush encodes its detect frame (the first flush: frame
+    0, init_state's warm-up) and tracks a reverse window of min(track, f+1)
+    frames in which the detect (cond) frames are skipped."""
+    enc = trk = 0
+    for f in range(buffer - 1, n, buffer):
+        window = range(f, max(f - track + 1, 0) - 1, -1)
+        tracked = sum(1 for t in window if t % interval)
+        enc, trk = enc + 1 + tracked, trk + tracked
+    return enc, trk
+
+
+def watch_application(proc, rec):
+    """Record around each release_old_frames of proc's predictor the frames
+    the session holds (host and device) and, after it, the device memory
+    allocated; time the host's video-resolution mask resize."""
+    vp = proc.predictor
+    release, resize = vp.release_old_frames, vp._video_res_masks
+    dev = vp.engine.device
+    rec.update(releases=[], resize_s=0.0)
+
+    def watched_release(session, frame_idx, *a, **kw):
+        held = (len(session.frames), len(session.frames_dev))
+        release(session, frame_idx, *a, **kw)
+        _sync(dev)
+        rec["releases"].append(dict(
+            frame=frame_idx, held_before=held,
+            held_after=(len(session.frames), len(session.frames_dev)),
+            allocated=torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0))
+
+    def timed_resize(session, masks):
+        t0 = time.perf_counter()
+        out = resize(session, masks)
+        rec["resize_s"] += time.perf_counter() - t0
+        return out
+
+    vp.release_old_frames = watched_release
+    vp._video_res_masks = timed_resize
+
+
+def check_segments(proc, n, hw) -> bool:
+    """video_segments: every frame from the first detection (frame 0) on,
+    a bool [1, H, W] mask for each ball; the pockets collected; the balls,
+    and no skipped class, prompted."""
+    segs = proc.video_segments
+    good = sorted(segs) == list(range(n)) and all(
+        sorted(s) == sorted(BALLS) and all(
+            isinstance(m, np.ndarray) and m.dtype == bool and m.shape == (1,) + hw
+            for m in s.values()) for s in segs.values())
+    pockets = [tuple(np.round(b, 3)) for b in proc.special_classes_detection]
+    good_pockets = pockets == [tuple(np.round(np.asarray(b, np.float32), 3))
+                               for b in pocket_boxes(hw)]
+    ids = proc.session.obj_ids
+    good_ids = sorted(ids) == sorted(BALLS) and not set(ids) & proc.skip_classes
+    log(f"[application] video_segments: {len(segs)} frames, each {len(BALLS)} bool "
+        f"[1, {hw[0]}, {hw[1]}] masks {good}; pockets collected "
+        f"{len(proc.special_classes_detection)} as detected {good_pockets}; prompted "
+        f"objects {ids}, none of skip_classes {sorted(proc.skip_classes)} {good_ids}")
+    return good and good_pockets and good_ids
+
+
+# Whole sessions of bf16 kernels vs bf16 plain versions, compared on their
+# binary masks at video / image resolution: per mask the share of equal
+# pixels. Rounding differences compound through 90 frames of memory (and the
+# AMG's small-region pass turns one flipped pixel into a kept or removed
+# island), so these read lower than one frame's outputs (which keep
+# SIGN_AGREE): on an H100 the application's 360 masks read min 0.974,
+# median 0.988, and 768 AMG records (16x16 points) min 0.974. With random weights a
+# wrong kernel barely moves masks (phase 3), so this gate is a sanity check;
+# the in-context checks and the taps are what catch a wrong kernel.
+SESSION_AGREE = 0.95
+
+
+def _agreement(label, ref, got) -> bool:
+    """Two processors' video_segments: the same frames and objects, and per
+    mask the share of equal pixels >= SESSION_AGREE."""
+    same = sorted(ref) == sorted(got) and all(sorted(ref[t]) == sorted(got[t]) for t in ref)
+    agree = [float((ref[t][o] == got[t][o]).mean()) for t in ref if t in got
+             for o in ref[t] if o in got[t]]
+    good = same and bool(agree) and min(agree) >= SESSION_AGREE
+    log(f"[checks] {label}: {len(agree)} masks, equal pixels min {min(agree, default=0):.5f} "
+        f"median {float(np.median(agree)) if agree else 0:.5f} (>= {SESSION_AGREE}), same "
+        f"frames and objects {same} {'OK' if good else 'FAIL'}")
+    return good
+
+
+def run_pipeline(vp, n, seed, hw, keep):
+    """DetSAM2Pipeline over n frames with a VideoPostProcessor; returns
+    (pipeline, postprocessor, the segments it handed off: each frame's last
+    delivery)."""
+    from det_sam2_tpu_torch.app.pipeline import DetSAM2Pipeline
+    from det_sam2_tpu_torch.app.postprocess import VideoPostProcessor
+    from det_sam2_tpu_torch.app.video_processor import VideoProcessor
+
+    proc = VideoProcessor(vp, billiards_detector(n, seed, hw))
+    pipe = DetSAM2Pipeline(proc, VideoPostProcessor(hole_anchors=_anchors(hw)),
+                           max_inference_state_frames=keep)
+    handed = {}
+    hand_off = pipe._hand_off_segments
+
+    def recorded_hand_off():
+        handed.update((t - proc.pre_frames, s) for t, s in proc.video_segments.items())
+        hand_off()
+
+    pipe._hand_off_segments = recorded_hand_off
+    post = pipe.inference(billiards_frames(n, seed, hw))
+    return pipe, post, handed
+
+
+def check_pipeline(pipe, post, handed, n, hw) -> bool:
+    """The threaded postprocessor against a synchronous VideoPostProcessor
+    run over the segments the pipeline handed off (a frame re-delivered by
+    the next reverse window counts with its last delivery, which the
+    pipeline's ordering rule processes last)."""
+    from det_sam2_tpu_torch.app.postprocess import VideoPostProcessor
+
+    sync = VideoPostProcessor(hole_anchors=_anchors(hw))
+    sync.get_hole_name(list(pipe.video_processor.special_classes_detection))
+    sync.get_boundary_from_holes()
+    sync.run(handed)
+    host_only = all(isinstance(m, np.ndarray) and m.dtype == bool
+                    for s in handed.values() for m in s.values())
+    events = post.events()
+    good = (events == sync.events() and post.balls_positions == sync.balls_positions
+            and sorted(handed) == list(range(n)) and host_only
+            and pipe.postprocess_started.is_set() and not pipe._post_thread.is_alive())
+    log(f"[application] DetSAM2Pipeline: {len(handed)} frames handed off as host bool "
+        f"masks ({host_only}), postprocess thread joined, positions of "
+        f"{len(post.balls_positions)} frames; events {json.dumps(events, default=str)}; "
+        f"skipped_frames {pipe.skipped_frames}; events and positions equal to a "
+        f"synchronous VideoPostProcessor.run over the handed-off segments "
+        f"{'OK' if good else 'FAIL'}")
+    return good
+
+
+def phase_application(dev, results, ckpt):
+    """Phase 6. Returns (ok, launches of the main run)."""
+    from det_sam2_tpu_torch.app.video_processor import VideoProcessor
+    from det_sam2_tpu_torch.build import build_sam2_engine, build_sam2_video_predictor
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.video_predictor import SAM2VideoPredictor
+
+    cfg = sam2_1_hiera_s()
+    gpu = gpu_line()
+    vp = build_sam2_video_predictor(cfg, ckpt)
+    eng = vp.engine
+    ok = True
+
+    # the user's path at VideoProcessor's defaults (the host's mask resize)
+    proc = VideoProcessor(vp, billiards_detector(APP_FRAMES, 0, APP_HW))
+    rec = {}
+    watch_application(proc, rec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    proc.run(billiards_frames(APP_FRAMES, 0, APP_HW))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(att.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = proc.stats
+    log(f"[application] ({gpu}) VideoProcessor (buffer {proc.frame_buffer_size}, detect "
+        f"every {proc.detect_interval}, reverse {proc.max_frame_num_to_track}, keep "
+        f"{proc.max_inference_state_frames}), hiera-S {cfg.image_size}^2 bf16 banked, "
+        f"{len(BALLS)} balls, {APP_FRAMES} frames {APP_HW[0]}x{APP_HW[1]} from a generator: "
+        f"{wall:.2f} s, stream {1e3 * wall / APP_FRAMES:.3f} ms/frame "
+        f"({APP_FRAMES / wall:.2f} FPS); peak_mem {peak / 2 ** 30:.3f} GiB")
+    log(f"[application] ({gpu}) stats {json.dumps(st)}; propagate "
+        f"{1e3 * st['propagate_s'] / st['frames_propagated']:.3f} ms per propagated frame, of "
+        f"which the host's video-res mask resize {1e3 * rec['resize_s'] / st['frames_propagated']:.3f}"
+        f" ({rec['resize_s'] / st['propagate_s']:.3f} of propagate_s, "
+        f"{rec['resize_s'] / wall:.3f} of the stream)")
+    ok &= check_segments(proc, APP_FRAMES, APP_HW)
+    keep_n = proc.max_inference_state_frames + proc.frame_buffer_size
+    rel = rec["releases"]
+    allocs = [r["allocated"] for r in rel]
+    grew = max(allocs[2:]) - allocs[2]
+    held = max(max(r["held_before"]) for r in rel)
+    good = len(rel) == APP_FRAMES // proc.frame_buffer_size >= 8 and grew <= MEM_SLACK \
+        and held <= keep_n
+    log(f"[application] ({gpu}) allocated after each of {len(rel)} releases (GiB): "
+        f"{[round(a / 2 ** 30, 4) for a in allocs]}; from the third on it grew "
+        f"{grew / 2 ** 20:+.3f} MiB (slack {MEM_SLACK / 2 ** 20:g}); frames held (host, "
+        f"device) before / after each release {[(r['held_before'], r['held_after']) for r in rel]}"
+        f", at most {held} (<= {keep_n}) {'OK' if good else 'FAIL'}")
+    ok &= good
+    enc, trk = app_expected(APP_FRAMES, proc.frame_buffer_size, proc.detect_interval,
+                            proc.max_frame_num_to_track)
+    want = {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
+            "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    good = launches == want
+    log(f"[application] ({gpu}) launches {launches}, expected {want} ({enc} encodes x "
+        f"{ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, x {TRACK_K2} K2) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    del proc
+
+    # the checks: kernels with every K2 call held in context, every kernel
+    # replaced by its plain version, a planted K2 fault; the video-res
+    # resize on the card (mask_resize="device") in these passes, whose
+    # subject is the kernels
+    def processor(engine, n):
+        return VideoProcessor(SAM2VideoPredictor(engine, mask_resize="device"),
+                              billiards_detector(n, 0, APP_HW))
+
+    keep = {}
+    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held_k):
+        kern = processor(eng, APP_CHECK)
+        kern.run(billiards_frames(APP_CHECK, 0, APP_HW))
+    plain_eng = build_sam2_engine(cfg, ckpt, plain_kernels=True)
+    with _tapped(plain_eng) as (plain_taps, plain_shapes, _):
+        plain = processor(plain_eng, APP_CHECK)
+        plain.run(billiards_frames(APP_CHECK, 0, APP_HW))
+    del plain_eng
+    ok &= _held_in_context("application, kernels", held_k)
+    ok &= _agreement(f"application, {APP_CHECK} frames: plain kernels vs kernels",
+                     plain.video_segments, kern.video_segments)
+    good = shapes == plain_shapes
+    log(f"[checks] application K2 shapes (objects, slots) reached {sorted(set(shapes))}, "
+        f"same in both passes {good}")
+    ok &= good
+    if good:
+        for key in sorted(set(shapes)):
+            idx = [i for i, sh in enumerate(shapes) if sh == key]
+            ok &= _taps_agree(f"application K2 at {key[0]} objects, {key[1]} slots: plain vs "
+                              "kernels", [plain_taps[i] for i in idx], [taps[i] for i in idx])
+    del kern, plain, taps, plain_taps
+    fault = "K2 reads the slots rolled by one"
+    with _tapped(eng, check=True, fault=fault) as (_, _, held_f):
+        processor(eng, APP_FAULT).run(billiards_frames(APP_FAULT, 0, APP_HW))
+    caught = not _held_in_context(f"application, planted '{fault}'", held_f)
+    log(f"[checks] application planted fault '{fault}': "
+        f"{'caught by the in-context check' if caught else 'MISSED'}")
+    ok &= caught
+    for key in sorted(k for k in keep if k[0] == "k2"):
+        ok &= _k2_rows(key[1], keep[key], results, gpu, path="application")
+    if ("k1_self", 4) in keep:
+        ok &= _k1_row(keep[("k1_self", 4)], results, gpu,
+                      "memory_self_attn_application_4obj", path="application")
+    else:
+        log("[application] no memory self-attention call at 4 objects FAIL")
+        ok = False
+    del keep
+
+    # the pipeline: inference on this thread, the postprocessor on its own
+    t0 = time.perf_counter()
+    pipe, post, handed = run_pipeline(SAM2VideoPredictor(eng, mask_resize="device"),
+                                      APP_PIPE, 2, APP_HW, APP_PIPE_KEEP)
+    log(f"[application] ({gpu}) DetSAM2Pipeline over {APP_PIPE} frames "
+        f"(max_inference_state_frames {APP_PIPE_KEEP}): {time.perf_counter() - t0:.2f} s")
+    ok &= check_pipeline(pipe, post, handed, APP_PIPE, APP_HW)
+    del pipe, post, handed, eng, vp
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the image predictor and the automatic mask generator
+# ---------------------------------------------------------------------------
+
+IMG_HW = (720, 1280)
+IMG_BATCH = 4  # images of the batched encode: K1 at [4 heads x 4, 4096, 96]
+AMG_RUNS = {  # label -> SAM2AutomaticMaskGenerator arguments beyond the predictor
+    "defaults (32x32 points, 64 a batch)": {},
+    "crop_n_layers=1 (5 crops, one batched encode)": dict(crop_n_layers=1),
+    # everything survives to NMS and the small-region pass runs; NMS at 1
+    # keeps every mask, so the kernels' and the plain run's records pair up
+    # (with random weights the IoU predictions sit within bf16 rounding of
+    # each other, and which of two near-equal masks a greedy NMS keeps is
+    # left to that rounding); 8x8 points (one batch, 192 masks) bound its
+    # host time: the small-region pass labels every mask at 720x1280 twice
+    "thresholds 0, min_mask_region_area 64": dict(
+        points_per_side=8, pred_iou_thresh=0.0, stability_score_thresh=0.0,
+        min_mask_region_area=64, box_nms_thresh=1.0),
+}
+AMG_COMPARED = "thresholds 0, min_mask_region_area 64"
+
+
+def seeded_images(n, seed, hw=IMG_HW):
+    """n seeded RGB images: noise and three bright rectangles at seeded
+    places."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        f = rng.integers(0, 100, hw + (3,), dtype=np.uint8)
+        for c in ((230, 60, 50), (50, 220, 80), (60, 90, 240)):
+            y0, x0 = rng.integers(0, hw[0] * 3 // 4), rng.integers(0, hw[1] * 3 // 4)
+            f[y0:y0 + hw[0] // 5, x0:x0 + hw[1] // 6] = c
+        out.append(f)
+    return out
+
+
+def image_calls(hw):
+    """(label, how it runs on a predictor) of phase 7's predictor calls, in
+    order; each returns numpy outputs."""
+    h, w = hw
+    box = np.asarray([w * 0.2, h * 0.25, w * 0.55, h * 0.7], np.float32)
+    clicks = np.asarray([[w * 0.3, h * 0.4], [w * 0.5, h * 0.5], [w * 0.8, h * 0.3]],
+                        np.float32)
+
+    def mask(p):  # a rectangle as low-res logits +-10
+        s4 = p.image_size // 4
+        m = np.full((1, s4, s4), -10.0, np.float32)
+        m[0, s4 // 4:s4 * 5 // 8, s4 // 5:s4 * 9 // 16] = 10.0
+        return m
+
+    return [
+        ("predict box, multimask", lambda p: p.predict(box=box, return_logits=True)),
+        ("predict 3 clicks, single mask", lambda p: p.predict(
+            point_coords=clicks, point_labels=np.asarray([1, 0, 1]),
+            multimask_output=False, return_logits=True)),
+        ("predict click + mask input, multimask", lambda p: p.predict(
+            point_coords=clicks[:1], point_labels=np.asarray([1]), mask_input=mask(p),
+            return_logits=True)),
+    ]
+
+
+@contextlib.contextmanager
+def _k1_tapped(eng, check: bool = False, keep=None):
+    """Route the image encoder's global-attention calls (K1, or its plain
+    version) through a tap that counts them and, with check=True, holds each
+    output against the plain version on the same inputs. keep (a dict) gets
+    the inputs of the first call of each batch size ([B * heads, N, D]).
+    Yields held."""
+    from det_sam2_tpu_torch.modeling.layers import sdpa
+
+    held = []
+    blocks = [b.attn for b in eng.model.image_encoder.trunk.blocks if b.attn.is_global]
+    saved = [a.attention_fn for a in blocks]
+
+    def tap(fn):
+        def attend(q, k, v, bias=None):
+            o = fn(q, k, v, bias=bias)
+            b, h, n, d = q.shape
+            if keep is not None and ("k1_hiera", b) not in keep:
+                keep[("k1_hiera", b)] = tuple(t.reshape(b * h, n, -1).clone()
+                                              for t in (q, k, v))
+            if check:
+                held.append(_held(o, sdpa(q, k, v), q.dtype))
+            return o
+        return attend
+
+    for a, fn in zip(blocks, saved):
+        a.attention_fn = tap(fn)
+    try:
+        yield held
+    finally:
+        for a, fn in zip(blocks, saved):
+            a.attention_fn = fn
+
+
+@contextlib.contextmanager
+def _k1_fault():
+    """Every K1 launch with the planted wrong-ring-stage fault."""
+    from det_sam2_tpu_torch.ops import attention as att
+
+    fwd = att.flash_attention_fwd
+    att.flash_attention_fwd = functools.partial(
+        fwd, fault=att.FWD_FAULTS["consumer reads the wrong ring stage"])
+    try:
+        yield
+    finally:
+        att.flash_attention_fwd = fwd
+
+
+def _features_close(label, ref, got) -> bool:
+    rel = [float((a.float() - b.float()).norm() / a.float().norm().clamp_min(1e-30))
+           for a, b in zip(ref, got)]
+    good = max(rel) <= TAP_REL
+    log(f"[checks] {label}: image features (s0, s1, top) relative L2 distance "
+        f"{[round(r, 5) for r in rel]} (<= {TAP_REL}) {'OK' if good else 'FAIL'}")
+    return good
+
+
+def _outputs_close(label, ref, got) -> bool:
+    """Predictor outputs (masks as logits, ious, low-res logits): per mask
+    the share of logits of equal sign >= SIGN_AGREE, the ious within
+    IOU_TOL."""
+    agree = [float(((a > 0) == (b > 0)).mean())
+             for a, b in zip(ref[0].reshape(-1, *ref[0].shape[-2:]),
+                             got[0].reshape(-1, *got[0].shape[-2:]))]
+    iou = float(np.abs(ref[1] - got[1]).max())
+    good = ref[0].shape == got[0].shape and min(agree) >= SIGN_AGREE and iou <= IOU_TOL
+    log(f"[checks] {label}: masks {list(got[0].shape)}, equal sign min {min(agree):.5f} "
+        f"(>= {SIGN_AGREE}), ious max_abs {iou:.4f} (<= {IOU_TOL}) "
+        f"{'OK' if good else 'FAIL'}")
+    return good
+
+
+# bf16 sessions that differ only in where the rounding happens: the IoU
+# head's outputs sit near 0.5 with random weights and move by a few bf16
+# ulps there (2^-8 = 0.004 each)
+IOU_TOL = 0.02
+
+
+def run_image_session(pred, images, rec, amg: bool = True):
+    """Phase 7's calls on predictor pred: set_image and the predictor calls,
+    set_image_batch of the next IMG_BATCH images and predict_batch, then
+    each AMG run on the first image (only AMG_COMPARED when amg is False).
+    rec gets the outputs, the features, and host-clock times."""
+    from det_sam2_tpu_torch.automatic_mask_generator import SAM2AutomaticMaskGenerator
+
+    dev = pred.engine.device
+    rec.update(outs={}, set_image_ms=[], set_image_batch_ms=[], predict_ms=[], amg_s={},
+               amg={})
+    for _ in range(2):  # the first call of a shape carries the library's set-up
+        _sync(dev)
+        t0 = time.perf_counter()
+        pred.set_image(images[0])
+        _sync(dev)
+        rec["set_image_ms"].append((time.perf_counter() - t0) * 1e3)
+    rec["features"] = [f.clone() for f in pred._features]
+    h, w = images[0].shape[:2]
+    for label, call in image_calls((h, w)):
+        t0 = time.perf_counter()
+        rec["outs"][label] = call(pred)
+        rec["predict_ms"].append((time.perf_counter() - t0) * 1e3)
+    batch = images[1:1 + IMG_BATCH]
+    for _ in range(2):
+        _sync(dev)
+        t0 = time.perf_counter()
+        pred.set_image_batch(batch)
+        _sync(dev)
+        rec["set_image_batch_ms"].append((time.perf_counter() - t0) * 1e3)
+    rec["batch_features"] = [f.clone() for f in pred._batch_features]
+    clicks = [np.asarray([[w * (0.2 + 0.15 * i), h * 0.5]], np.float32)
+              for i in range(len(batch))]
+    masks, ious, low = pred.predict_batch(clicks, [np.ones(1, np.int32)] * len(batch),
+                                          return_logits=True)
+    rec["outs"]["predict_batch"] = (np.stack(masks), np.stack(ious), np.stack(low))
+    for label, kw in AMG_RUNS.items():
+        if not amg and label != AMG_COMPARED:
+            continue
+        t0 = time.perf_counter()
+        rec["amg"][label] = SAM2AutomaticMaskGenerator(pred, **kw).generate(images[0])
+        rec["amg_s"][label] = time.perf_counter() - t0
+
+
+def _amg_close(label, ref, got) -> bool:
+    """Two AMG runs with NMS at 1: the same number of records and prompts;
+    each record's mask against the best-matching mask of the same prompt,
+    equal pixels >= SESSION_AGREE."""
+    def by_prompt(records):
+        groups = {}
+        for r in records:
+            groups.setdefault(tuple(map(tuple, r["point_coords"])), []).append(
+                r["segmentation"])
+        return groups
+
+    a, b = by_prompt(ref), by_prompt(got)
+    same = len(ref) == len(got) and sorted(a) == sorted(b) and all(
+        len(a[k]) == len(b[k]) for k in a)
+    agree = [max(float((m == n).mean()) for n in a[k]) for k in b if k in a for m in b[k]]
+    good = same and min(agree, default=0) >= SESSION_AGREE
+    log(f"[checks] {label}: {len(got)} records (plain {len(ref)}), same prompts and counts "
+        f"{same}; each mask's best match in its prompt, equal pixels min "
+        f"{min(agree, default=0):.5f} median {float(np.median(agree)) if agree else 0:.5f} "
+        f"(>= {SESSION_AGREE}) {'OK' if good else 'FAIL'}")
+    return good
+
+
+def check_image_outputs(rec, hw) -> bool:
+    """Shapes and finite values of every output; AMG records well formed."""
+    want = {"predict box, multimask": (3,) + hw, "predict 3 clicks, single mask": (1,) + hw,
+            "predict click + mask input, multimask": (3,) + hw,
+            "predict_batch": (IMG_BATCH, 3) + hw}
+    good = all(rec["outs"][k][0].shape == s for k, s in want.items()) and all(
+        np.isfinite(x).all() for o in rec["outs"].values() for x in o)
+    for label, records in rec["amg"].items():
+        good &= all(r["segmentation"].shape == hw and r["segmentation"].dtype == bool
+                    and np.isfinite(r["predicted_iou"]) for r in records)
+    return good
+
+
+def phase_image(dev, results, ckpt):
+    """Phase 7. Returns (ok, launches of the kernels' session)."""
+    from det_sam2_tpu_torch.build import build_sam2
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+
+    cfg = sam2_1_hiera_s()
+    gpu = gpu_line()
+    images = seeded_images(1 + IMG_BATCH, 0, IMG_HW)
+    pred = build_sam2(cfg, ckpt)
+    eng = pred.engine
+    encodes = []
+    encode = eng.encode_image
+    eng.encode_image = lambda img: (encodes.append(len(img)), encode(img))[1]
+    rec, keep = {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _k1_tapped(eng, check=True, keep=keep) as held:
+        run_image_session(pred, images, rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(att.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del eng.encode_image
+    log(f"[image] ({gpu}) build_sam2 hiera-S {cfg.image_size}^2 bf16, images "
+        f"{IMG_HW[0]}x{IMG_HW[1]}: session {wall:.2f} s, peak_mem {peak / 2 ** 30:.3f} GiB; "
+        f"set_image {rec['set_image_ms'][1]:.2f} ms (first {rec['set_image_ms'][0]:.2f}), "
+        f"set_image_batch of {IMG_BATCH} {rec['set_image_batch_ms'][1]:.2f} ms (first "
+        f"{rec['set_image_batch_ms'][0]:.2f}), predict "
+        f"{[round(x, 2) for x in rec['predict_ms']]} ms")
+    for label, s in rec["amg_s"].items():
+        log(f"[image] ({gpu}) AMG {label}: {s:.3f} s an image, "
+            f"{len(rec['amg'][label])} records")
+    good = check_image_outputs(rec, IMG_HW)
+    log(f"[image] every output at the image's size and finite, AMG records well formed "
+        f"{good}")
+    ok = good
+    # set_image and set_image_batch of IMG_BATCH twice each, one encode an
+    # AMG run (crop_n_layers=1: its 5 crops in one set_image_batch)
+    want_enc = [1, 1, IMG_BATCH, IMG_BATCH, 1, 5, 1]
+    want = {"flash_fwd": ENCODE_K1 * len(encodes), "flash_banked_keys": 0,
+            "flash_banked_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    good = launches == want and encodes == want_enc
+    log(f"[image] ({gpu}) encode calls (images each) {encodes}, expected {want_enc}; "
+        f"launches {launches}, expected {want} ({ENCODE_K1} K1 an encode call) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    ok &= _held_in_context("image encoder, kernels", held, "Hiera global attention calls")
+
+    plain_pred = build_sam2(cfg, ckpt, plain_kernels=True)
+    rec_p = {}
+    run_image_session(plain_pred, images, rec_p, amg=False)
+    del plain_pred
+    ok &= _features_close("set_image: plain kernels vs kernels", rec_p["features"],
+                          rec["features"])
+    ok &= _features_close("set_image_batch: plain kernels vs kernels",
+                          rec_p["batch_features"], rec["batch_features"])
+    for label in rec_p["outs"]:
+        ok &= _outputs_close(f"{label}: plain kernels vs kernels", rec_p["outs"][label],
+                             rec["outs"][label])
+    ok &= _amg_close(f"AMG {AMG_COMPARED}: plain kernels vs kernels",
+                     rec_p["amg"][AMG_COMPARED], rec["amg"][AMG_COMPARED])
+
+    # a planted K1 fault must fail the predictor check
+    with _k1_fault(), _k1_tapped(eng, check=True) as held_f:
+        rec_f = {}
+        pred.set_image(images[0])
+        rec_f["features"] = list(pred._features)
+        rec_f["out"] = image_calls(IMG_HW)[0][1](pred)
+    caught = [name for name, good in (
+        ("in-context check", _held_in_context("image encoder, planted fault", held_f,
+                                              "Hiera global attention calls")),
+        ("features", _features_close("planted fault vs plain", rec_p["features"],
+                                     rec_f["features"])),
+        ("masks / ious", _outputs_close("planted fault vs plain",
+                                        rec_p["outs"]["predict box, multimask"],
+                                        rec_f["out"])),
+    ) if not good]
+    log(f"[checks] image planted fault 'consumer reads the wrong ring stage': "
+        f"{'caught by ' + ', '.join(caught) if caught else 'MISSED'}")
+    ok &= bool(caught)
+    if ("k1_hiera", IMG_BATCH) in keep:
+        ok &= _k1_row(keep[("k1_hiera", IMG_BATCH)], results, gpu,
+                      f"hiera_global_image_batch_{IMG_BATCH}", path="image")
+    else:
+        log(f"[image] no Hiera global call of the batched encode FAIL")
+        ok = False
+    del pred, eng, keep, rec, rec_p
     torch.cuda.empty_cache()
     return ok, launches
 
@@ -1766,17 +2462,34 @@ def main() -> int:
     del train_state
     torch.cuda.empty_cache()
     log(f"[time] phase 4 checks {time.time() - t_phase:.1f} s")
-    t_phase = time.time()
-    ok_vp, predictor = phase_predictor(dev, results)
-    ok &= ok_vp
-    log(f"[time] phase 5 (video predictor) {time.time() - t_phase:.1f} s ({gpu_line()})")
-    counts = {"serving": serving, "training": training, "predictor": predictor}
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as work:
+        from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+
+        ckpt = write_seeded_checkpoint(sam2_1_hiera_s(), work)
+        t_phase = time.time()
+        ok_vp, predictor = phase_predictor(dev, results, work, ckpt)
+        ok &= ok_vp
+        log(f"[time] phase 5 (video predictor) {time.time() - t_phase:.1f} s ({gpu_line()})")
+        t_phase = time.time()
+        ok_app, application = phase_application(dev, results, ckpt)
+        ok &= ok_app
+        log(f"[time] phase 6 (application) {time.time() - t_phase:.1f} s ({gpu_line()})")
+        t_phase = time.time()
+        ok_img, image = phase_image(dev, results, ckpt)
+        ok &= ok_img
+        log(f"[time] phase 7 (image predictor, AMG) {time.time() - t_phase:.1f} s "
+            f"({gpu_line()})")
+    counts = {"serving": serving, "training": training, "predictor": predictor,
+              "application": application, "image": image}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
     for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                        ("predictor", serving_kernels)):
+                        ("predictor", serving_kernels), ("application", serving_kernels),
+                        ("image", ("flash_fwd",))):
         for name in names:
             if counts[path][name] <= 0:
                 log(f"[main] kernel {name} was not launched by the {path} path")

@@ -2,11 +2,12 @@
 
 Counterpart of the JAX package's ``build.py``: a preset name, SAM 2.1
 HF-hub id or ``SAM2Config`` plus a checkpoint -> ``SAM2Engine`` /
-``SAM2VideoPredictor``. Checkpoints: a SAM 2.1 ``.pt`` state dict (loaded
-strictly: the port keeps SAM 2.1's key layout) or the JAX package's
-``save_params_npz`` file (read with numpy). Options the port does not have
-yet raise instead of doing something else: reference YAML configs, the JAX
-trainer's orbax directories and the int8 trunk (each a ROADMAP item).
+``SAM2ImagePredictor`` / ``SAM2VideoPredictor``. Checkpoints: a SAM 2.1
+``.pt`` state dict (loaded strictly: the port keeps SAM 2.1's key layout)
+or the JAX package's ``save_params_npz`` file (read with numpy). Options the
+port does not have yet raise instead of doing something else: reference
+YAML configs, the JAX trainer's orbax directories and the int8 trunk (each
+a ROADMAP item).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from det_sam2_tpu_torch import convert
 from det_sam2_tpu_torch.configs import MODEL_CONFIGS, SAM2Config, with_image_size
+from det_sam2_tpu_torch.image_predictor import SAM2ImagePredictor
 from det_sam2_tpu_torch.track import SAM2Engine
 from det_sam2_tpu_torch.video_predictor import SAM2VideoPredictor
 
@@ -111,6 +113,22 @@ def build_sam2_engine(
     cfg = _resolve_cfg(model_cfg, **overrides)
     return SAM2Engine(cfg, params=_load_params(checkpoint), dtype=dtype,
                       device=device, plain_kernels=plain_kernels)
+
+
+def build_sam2(
+    model_cfg="hiera_s",
+    checkpoint: Optional[str] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    device=None,
+    quantize_int8: bool = False,
+    plain_kernels: bool = False,
+    **overrides,
+) -> SAM2ImagePredictor:
+    """Image predictor (SAM 2's build_sam2). device: None = CUDA (raises
+    without a card)."""
+    return SAM2ImagePredictor(build_sam2_engine(
+        model_cfg, checkpoint, dtype, device, quantize_int8, plain_kernels,
+        **overrides))
 
 
 def build_sam2_video_predictor(

@@ -1,4 +1,4 @@
-"""Hole filling on low-res mask logits, on the device.
+"""Hole filling on low-res mask logits, on the device; and a host labeller.
 
 Counterpart of the JAX package's ``fill_holes_in_mask_scores_jax`` with its
 stencil path (``small_components_jax`` / ``_small_via_stencil``). Plain torch:
@@ -6,12 +6,19 @@ this was never a Pallas kernel. A fixed ceil(max_area) rounds of 8-neighbour
 min-label propagation (one 3x3 min-pool each) and a bounded-displacement
 stencil give the exact mask of components with area <= max_area; there is
 no data-dependent loop and no host synchronisation.
+
+The host functions at the end label components with scipy (imported when
+called): the image predictor's hole / sprinkle cleanup, whose areas (64
+pixels for the AMG) are too large for the stencil's window, and the AMG's
+small-region pass.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -91,3 +98,49 @@ def fill_holes_in_mask_scores(mask: torch.Tensor, max_area: float) -> torch.Tens
     is_hole = small_components(mask <= 0, max_area)
     return torch.where(is_hole, torch.tensor(0.1, dtype=mask.dtype,
                                              device=mask.device), mask)
+
+
+# ---------------------------------------------------------------------------
+# host labeller (numpy / scipy): the image predictor's cleanup and the AMG
+# ---------------------------------------------------------------------------
+
+
+def connected_components_np(masks: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """masks [..., H, W] (nonzero = foreground) -> (labels int32, areas
+    int64), both [..., H, W]: 8-connected components of each [H, W] plane,
+    labels > 0 on foreground (numbered across planes), areas the pixel
+    count of each pixel's component (0 on background). The counterpart of
+    the JAX package's ``get_connected_components_np`` (a C++ union-find or
+    cv2 there, scipy here; label numbers differ, areas do not)."""
+    from scipy import ndimage
+
+    m = np.asarray(masks) != 0
+    lead, (h, w) = m.shape[:-2], m.shape[-2:]
+    structure = np.zeros((3, 3, 3), bool)
+    structure[1] = True  # 8-neighbours within a plane, none across planes
+    labels, _ = ndimage.label(m.reshape(-1, h, w), structure=structure)
+    sizes = np.bincount(labels.ravel())
+    sizes[0] = 0
+    return (labels.astype(np.int32).reshape(*lead, h, w),
+            sizes[labels].reshape(*lead, h, w))
+
+
+def fill_holes_and_sprinkles_np(
+    masks: np.ndarray, threshold: float, max_hole_area: float,
+    max_sprinkle_area: float,
+) -> np.ndarray:
+    """SAM 2's postprocess_masks cleanup of mask logits [..., H, W] on the
+    host: background components (<= threshold) of area <= max_hole_area
+    become threshold + 10, foreground components of area <=
+    max_sprinkle_area become threshold - 10. Both passes label the original
+    mask (the sprinkle pass does not see the filled holes); the writes apply
+    in that order."""
+    orig = np.asarray(masks, np.float32)
+    out = orig
+    if max_hole_area > 0:
+        labels, areas = connected_components_np(orig <= threshold)
+        out = np.where((labels > 0) & (areas <= max_hole_area), threshold + 10.0, out)
+    if max_sprinkle_area > 0:
+        labels, areas = connected_components_np(orig > threshold)
+        out = np.where((labels > 0) & (areas <= max_sprinkle_area), threshold - 10.0, out)
+    return out.astype(np.float32)

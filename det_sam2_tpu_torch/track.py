@@ -303,6 +303,28 @@ class SAM2Engine:
             "ious": ious,
         }
 
+    @torch.no_grad()
+    def predict_step(self, feats, points, labels, mask_input=None,
+                     multimask: bool = True) -> dict:
+        """Memory-less SAM prediction on one image's features (the image
+        predictor and the AMG): points [B, P, 2] in model pixels, labels
+        [B, P], mask_input [B, 1, s4, s4] logits or None. The heads run
+        without the no-object gate on the masks. Returns multimasks [B, M,
+        s4, s4] and low_res_masks [B, 1, s4, s4] fp32 logits, ious [B, M],
+        object_score_logits [B, 1]."""
+        m = self.model
+        points = self._t(points, torch.float32)
+        labels = self._t(labels, torch.int64)
+        s0, s1, feat = _broadcast_feats(feats, points.shape[0])
+        if mask_input is not None:
+            mask_input = self._t(mask_input, torch.float32)[:, 0, :, :, None]
+        (multimasks, _, ious, low_res, _, _, obj_logits) = m.forward_sam_heads(
+            m.no_mem_features(feat), point_coords=points, point_labels=labels,
+            mask_inputs=mask_input, high_res_features=[s0, s1],
+            multimask_output=bool(multimask), gate_no_obj=False)
+        return {"multimasks": multimasks, "ious": ious, "low_res_masks": low_res,
+                "object_score_logits": obj_logits}
+
     def _encode(self, feats, bank, frame_idx, low_res_masks, obj_logits,
                 obj_ptr, is_mask_from_pts, obj_valid, to_cond, pinned=False):
         cfg, m = self.cfg, self.model

@@ -1,11 +1,12 @@
 """Host-side frame I/O and mask utilities of the video predictor.
 
 The port's own copy of what the predictor uses from the JAX package's
-``utils/misc.py``, with no optional package on the frame path: frames are
-resized with a torch bilinear on the CPU (half-pixel centres, no antialias,
-rounded to uint8) instead of cv2 / PIL, PIL is imported only to decode image
-files, and cv2 only to decode video files. Frames are stored as resized
-uint8 [image_size, image_size, 3]; the patch embed normalises them.
+``utils/misc.py``, with no optional package on the ndarray frame path: those
+frames are resized with a torch bilinear on the CPU (half-pixel centres, no
+antialias, rounded to uint8) instead of cv2. PIL is imported only to decode
+image files, which it also resizes (as the JAX package does), and cv2 only to
+decode video files. Frames are stored as resized uint8 [image_size,
+image_size, 3]; the patch embed normalises them.
 """
 
 from __future__ import annotations
@@ -21,7 +22,10 @@ VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
 
 
 def _load_image_file(path: str, image_size: int) -> Tuple[np.ndarray, int, int]:
-    """Decode an image file with PIL -> (resized uint8 frame, height, width)."""
+    """Decode an image file with PIL -> (resized uint8 frame, height, width).
+    Decoded and resized as the JAX package does: PIL's ``Image.resize`` with
+    its default filter (not ``prepare_frame``, which differs from it by tens
+    of uint8 levels away from model size)."""
     try:
         from PIL import Image
     except ImportError as e:
@@ -30,9 +34,9 @@ def _load_image_file(path: str, image_size: int) -> Tuple[np.ndarray, int, int]:
             "the frames as ndarrays instead"
         ) from e
     with Image.open(path) as im:
-        img = np.asarray(im.convert("RGB"))
-    h, w = img.shape[:2]
-    return prepare_frame(img, image_size), h, w
+        img = im.convert("RGB")
+    w, h = img.size
+    return np.asarray(img.resize((image_size, image_size))), h, w
 
 
 def prepare_frame(frame_rgb: np.ndarray, image_size: int) -> np.ndarray:
@@ -128,6 +132,35 @@ def _load_video_file(path: str, image_size: int):
     if not frames:
         raise RuntimeError(f"no frames decoded from {path}")
     return frames, h, w
+
+
+def mask_to_box_np(masks: np.ndarray) -> np.ndarray:
+    """[..., H, W] binary -> xyxy [..., 4] fp32 with inclusive edges; empty
+    masks -> zeros (SAM's mask_to_box and the AMG's batched_mask_to_box)."""
+    shape = masks.shape[:-2]
+    h, w = masks.shape[-2:]
+    if masks.size == 0:
+        return np.zeros((*shape, 4), np.float32)
+    flat = masks.reshape(-1, h, w) > 0
+    any_y = flat.any(axis=2)  # [B, H] rows holding foreground
+    any_x = flat.any(axis=1)  # [B, W] columns holding foreground
+    y_min = np.argmax(any_y, axis=1)
+    y_max = h - 1 - np.argmax(any_y[:, ::-1], axis=1)
+    x_min = np.argmax(any_x, axis=1)
+    x_max = w - 1 - np.argmax(any_x[:, ::-1], axis=1)
+    out = np.stack([x_min, y_min, x_max, y_max], axis=-1).astype(np.float32)
+    out[~any_y.any(axis=1)] = 0.0
+    return out.reshape(*shape, 4)
+
+
+def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Tensors -> fp32 numpy arrays with one synchronisation: the device
+    copies are queued into pinned memory, then the stream is waited for
+    once."""
+    host = [t.to("cpu", non_blocking=True) for t in tensors]
+    if any(t.is_cuda for t in tensors):
+        torch.cuda.current_stream().synchronize()
+    return [h.float().numpy() for h in host]
 
 
 def concat_points(old, points: np.ndarray, labels: np.ndarray):

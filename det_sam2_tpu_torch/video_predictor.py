@@ -45,21 +45,12 @@ from det_sam2_tpu_torch.utils.misc import (
     list_frame_dir,
     load_video_frames,
     resize_masks_np,
+    to_host,
 )
 
 
 def _bucket(n: int) -> int:
     return bank_ops.next_pow2(n)
-
-
-def _to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Tensors -> fp32 numpy arrays with one synchronisation: the device
-    copies are queued into pinned memory, then the stream is waited for
-    once."""
-    host = [t.to("cpu", non_blocking=True) for t in tensors]
-    if any(t.is_cuda for t in tensors):
-        torch.cuda.current_stream().synchronize()
-    return [h.float().numpy() for h in host]
 
 
 class _LazyFrames(dict):
@@ -384,7 +375,7 @@ class SAM2VideoPredictor:
         if frame_idx not in session._empty_ptr:
             feats = self._get_feats(session, frame_idx)
             ptr = self.engine.empty_mask_ptr(feats, frame_idx)
-            session._empty_ptr[frame_idx] = _to_host(ptr)[0]
+            session._empty_ptr[frame_idx] = to_host(ptr)[0]
         return session._empty_ptr[frame_idx]
 
     def _lookup_output_row(self, session, obj_idx: int, frame_idx: int):
@@ -404,7 +395,7 @@ class SAM2VideoPredictor:
     def _resize(self, masks: np.ndarray, hw) -> np.ndarray:
         if self.mask_resize == "host":
             return resize_masks_np(masks, hw)
-        return _to_host(self.engine.resize_masks(masks, hw))[0]
+        return to_host(self.engine.resize_masks(masks, hw))[0]
 
     def _consolidate(
         self,
@@ -482,7 +473,7 @@ class SAM2VideoPredictor:
                     out: dict) -> np.ndarray:
         """Keep this object's row of a prompt step's outputs, consolidate the
         frame at video resolution and return its masks."""
-        masks, ptr, scores = _to_host(out["pred_masks"], out["obj_ptr"],
+        masks, ptr, scores = to_host(out["pred_masks"], out["obj_ptr"],
                                       out["object_score_logits"])
         temp = session.temp_cond if is_cond else session.temp_noncond
         temp[obj_idx][frame_idx] = {
@@ -682,7 +673,7 @@ class SAM2VideoPredictor:
                 steps.append((frame_idx, out, None))
 
         keys = ("pred_masks", "obj_ptr", "object_score_logits")
-        fetched = iter(_to_host(*[o[k] for _, o, _ in steps if o is not None
+        fetched = iter(to_host(*[o[k] for _, o, _ in steps if o is not None
                                   for k in keys]))
         for frame_idx, out, pred_masks in steps:
             if out is not None:
@@ -710,7 +701,7 @@ class SAM2VideoPredictor:
             obj_valid=self._active_mask(session),
             img_idx=[pos.get(fi, 0) for fi in order],
         )
-        masks_t, ptrs_t, scores_t = _to_host(*outs)
+        masks_t, ptrs_t, scores_t = to_host(*outs)
         valid_row = self._active_mask(session)
         for i, frame_idx in enumerate(order):
             if skip(frame_idx):

@@ -168,8 +168,11 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = res.stdout.split()
-    assert len(mods) >= 29  # every submodule, training/ and utils/ too
-    for m in ("utils.misc", "video_predictor", "build"):
+    assert len(mods) >= 42  # every submodule, training/, utils/ and app/ too
+    for m in ("utils.misc", "video_predictor", "build", "image_predictor",
+              "automatic_mask_generator", "utils.amg", "utils.profiling",
+              "app.detector", "app.rtsp", "app.video_processor", "app.postprocess",
+              "app.pipeline", "app.eval", "app.frames2video", "app.result_visualize"):
         assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 

@@ -198,6 +198,23 @@ def test_k1_paths_match_plain_on_cuda(dev, dtype, shape):
 
 
 @pytest.mark.cuda
+def test_k1_at_the_batched_image_encode_shape_on_cuda(dev):
+    """K1 at a Hiera global block of the image predictor's batched encode
+    (hiera-S, 4 images: [4 heads x 4, 4096, 96] bf16, no bias) against
+    flash_attention_ref; the planted wrong-ring-stage fault must fail."""
+    q, k, v = (_rand((16, 4096, 96), 20 + i).to(dev, torch.bfloat16) for i in range(3))
+    before = att.LAUNCHES["flash_fwd"]
+    out, _ = att.flash_attention_fwd(q, k, v)
+    assert att.LAUNCHES["flash_fwd"] == before + 1
+    ref, _ = att.flash_attention_ref(q, k, v)
+    _assert_held(out, ref)
+    bad, _ = att.flash_attention_fwd(
+        q, k, v, fault=att.FWD_FAULTS["consumer reads the wrong ring stage"])
+    with pytest.raises(AssertionError):
+        _assert_held(bad, ref)
+
+
+@pytest.mark.cuda
 def test_dispatch_rule_launches_k1_on_cuda(dev):
     """Above the dispatch threshold a CUDA problem reaches the kernel; below
     it, the plain sdpa (on every device)."""
