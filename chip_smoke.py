@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # seven phases, one card
+    python3 chip_smoke.py            # nine phases, one card
 
 Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
@@ -69,6 +69,35 @@ with crop_n_layers=1 and with thresholds at 0; K1 launches 3 an encode
 call, every Hiera global K1 call held in context, features, masks and
 scores against a plain-kernel predictor, a planted K1 fault that must
 fail. Prints ms per set_image and predict, s per AMG image, peak memory.
+Phase 8 (the HTTP server): the port's serving stack on phase 5's predictor
+(InferenceAPI, GraphQLAPI, make_handler on a ThreadingHTTPServer bound to
+127.0.0.1, port 0) over a real socket: two seeded 720x1280 videos of 24
+frames started in process from ndarrays (no video decoder needed), then over
+HTTP boxes, clicks with and without clear_old_points, a mask prompt, a
+cleared prompt, NDJSON propagation forward and reverse, a cancel from a
+second connection mid-stream and a full pass after it, remove_object,
+reset_session, close_session on one session; GraphQL mutations on the
+other; planned errors (unknown session, /frame, an undecodable upload, an
+unknown route); two sessions propagating at once from two client threads.
+Checks: every status, every mask decoded from the RLEs equal bit for bit to
+the same calls on the predictor in process, the concurrent propagations
+equal to serial ones, launches as the calls imply, grad mode off in every
+engine call on a handler thread, allocated memory after a second round of
+sessions back within 1 MiB of the first round's. Prints round-trip ms by
+request kind, served ms/frame over HTTP and in process, the host resize's
+share, NDJSON bytes per frame, peak memory.
+Phase 9 (the batched streamer): BatchedVideoStreamer on the same engine, 4
+seeded videos x 2 objects (8 object rows), videos 0-1 box-prompted at frame
+0 and 2-3 at frame 2 (so frame 2 skips for two videos only), two lockstep
+windows of 16 frames. Checks: launches a step (one batched encode: K1 x 3
+at [16, 4096, 96]; K1 x 4 at [8, 4096, 256]; K2 x 4 + 4 at 8 rows),
+skipped rows zero, an all-skip step that launches and writes nothing, the
+guards, each video's rows against its own single-video windows and all
+rows against a plain-kernel run (share of equal mask signs >=
+SESSION_AGREE, pointers and scores within PTR_REL), every K1 / K2 call held
+in context, a planted K2 fault that must fail. Prints ms per lockstep step
+and per stream-frame beside the single-video windows, the J&F between them,
+peak memory.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -878,13 +907,14 @@ PLANTED = ("K2 output zeroed", "K2 reads the slots rolled by one",
 
 
 @contextlib.contextmanager
-def _tapped(eng, check: bool = False, fault=None, keep=None):
+def _tapped(eng, check: bool = False, fault=None, keep=None, check_self: bool = False):
     """Route eng's memory cross-attention calls (K2 in banked mode, K1 in
     gather mode, or their plain versions) through a tap: it keeps each
     call's raw output P @ memory values [B, Nq, Cm] in fp32 and its shape
     (B, K2's slot count; in gather mode B, the key count), and with
     check=True holds the output against the plain version
-    on the same inputs by phase 1's rule. fault plants a fault in K2's
+    on the same inputs by phase 1's rule. check_self holds the memory
+    self-attention calls (K1) too. fault plants a fault in K2's
     wrapper. keep (a dict) gets the inputs of the last K2 call of each
     (B, slots) shape, its bank cut to the attended rows, and of the first
     memory self-attention call of each batch size. Yields (taps, shapes,
@@ -930,7 +960,10 @@ def _tapped(eng, check: bool = False, fault=None, keep=None):
             if keep is not None and ("k1_self", q.shape[0]) not in keep:
                 keep[("k1_self", q.shape[0])] = (q[:, 0].clone(), k[:, 0].clone(),
                                                  v[:, 0].clone())
-            return fn(q, k, v, bias=bias)
+            o = fn(q, k, v, bias=bias)
+            if check_self:
+                held.append(_held(o, sdpa(q, k, v, bias), q.dtype))
+            return o
         return tap
 
     for m in mods:
@@ -1299,6 +1332,15 @@ VP_SECOND = 16  # frames of the second: 8 tracked on the preload bank, 8 more
 VP_STEPS = 8  # frames tracked in step 10 and in the window check
 VP_KEEP = 16  # release_old_frames(47, max_inference_state_frames=VP_KEEP)
 MEM_SLACK = 1 << 20  # bytes the allocated device memory may grow across a release
+
+
+def live_bytes(dev=None) -> int:
+    """Device bytes the live tensors asked for. The flatness checks read
+    this, not torch.cuda.memory_allocated: that one counts whole allocator
+    blocks, and a cached block with less than 1 MiB to spare is handed out
+    whole, so the same live tensors count up to ~1 MiB more each, by the
+    allocation history of the process."""
+    return torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
 # K1 launches of one image encode (hiera-S: 3 Hiera global blocks); of one
 # memory-conditioned frame, K1 (memory self-attention) and K2 (pre-pass and
 # main, memory cross-attention) once a memory-attention layer
@@ -1508,6 +1550,17 @@ def _k2_rows(key, args, results, gpu, path="predictor") -> bool:
     return good
 
 
+def _sdpa_ms(q, k, v, iters):
+    """ms of one F.scaled_dot_product_attention call with every backend
+    allowed (a built engine turns the cuDNN one off for the process): the
+    library's own pick."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                      SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
+        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+
+
 def _k1_row(args, results, gpu, label, path="predictor") -> bool:
     """K1 at a shape a path gave it (no bias), on that call's inputs: held,
     timed against plain and sdpa, bounded; one kernel-table row."""
@@ -1522,8 +1575,7 @@ def _k1_row(args, results, gpu, label, path="predictor") -> bool:
     bnd, by = bound_ms(flops, nbytes(q, k, v, out, lse), dtype)
     ms = time_ms(lambda: att.flash_attention_fwd(q, k, v), 20)
     plain = time_ms(lambda: att.flash_attention_ref(q, k, v), 3, 1)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(q[:, None], k[:, None],
-                                                         v[:, None]), 20)
+    lib = _sdpa_ms(q[:, None], k[:, None], v[:, None], 20)
     log(f"[{path}] ({gpu}) K1 {label} q{list(q.shape)} {str(dtype)[6:]}: "
         f"{_fmt(h)} ms {ms:.4f} plain_ms {plain:.4f} sdpa_ms {lib:.4f} bound_ms {bnd:.4f} "
         f"({by}) {'OK' if h['good'] else 'FAIL'}")
@@ -1828,7 +1880,8 @@ def watch_application(proc, rec):
         rec["releases"].append(dict(
             frame=frame_idx, held_before=held,
             held_after=(len(session.frames), len(session.frames_dev)),
-            allocated=torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0))
+            allocated=torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0,
+            requested=live_bytes(dev) if dev.type == "cuda" else 0))
 
     def timed_resize(session, masks):
         t0 = time.perf_counter()
@@ -1978,12 +2031,14 @@ def phase_application(dev, results, ckpt):
     keep_n = proc.max_inference_state_frames + proc.frame_buffer_size
     rel = rec["releases"]
     allocs = [r["allocated"] for r in rel]
-    grew = max(allocs[2:]) - allocs[2]
+    asked = [r["requested"] for r in rel]
+    grew = max(asked[2:]) - asked[2]
     held = max(max(r["held_before"]) for r in rel)
     good = len(rel) == APP_FRAMES // proc.frame_buffer_size >= 8 and grew <= MEM_SLACK \
         and held <= keep_n
-    log(f"[application] ({gpu}) allocated after each of {len(rel)} releases (GiB): "
-        f"{[round(a / 2 ** 30, 4) for a in allocs]}; from the third on it grew "
+    log(f"[application] ({gpu}) live tensors' bytes after each of {len(rel)} releases "
+        f"(GiB): {[round(a / 2 ** 30, 4) for a in asked]} (allocator blocks "
+        f"{[round(a / 2 ** 30, 4) for a in allocs]}); from the third on it grew "
         f"{grew / 2 ** 20:+.3f} MiB (slack {MEM_SLACK / 2 ** 20:g}); frames held (host, "
         f"device) before / after each release {[(r['held_before'], r['held_after']) for r in rel]}"
         f", at most {held} (<= {keep_n}) {'OK' if good else 'FAIL'}")
@@ -2372,6 +2427,880 @@ def phase_image(dev, results, ckpt):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the HTTP server (serving/: InferenceAPI, GraphQL, make_handler)
+# ---------------------------------------------------------------------------
+
+SRV_FRAMES = 24  # frames of each served video
+SRV_CONCURRENT = 11  # max_frame_num_to_track of the concurrent propagations
+
+
+def _clicks(j, t):
+    """Two positive clicks inside object j's rectangle at frame t and one
+    negative click beside it, video pixels."""
+    x0, y0, x1, y1 = _rect(j, t)
+    return ([[(x0 + x1) / 2, (y0 + y1) / 2], [x0 + 20.0, y0 + 20.0], [x1 + 30.0, y0 + 10.0]],
+            [1, 1, 0])
+
+
+def _seeded_mask(j, t, seed):
+    """Object j's rectangle at frame t with seeded holes, as a bool mask."""
+    m = np.zeros(VP_HW, bool)
+    x0, y0, x1, y1 = _rect(j, t)
+    m[y0:y1, x0:x1] = np.random.default_rng(seed).random((y1 - y0, x1 - x0)) > 0.05
+    return m
+
+
+# session A, over the REST routes: (route, arguments); "cancel" streams a
+# propagation and cancels it from a second connection after its first line
+SRV_SCRIPT_A = [
+    ("add_box", dict(frame_index=0, object_id=1, box=list(_rect(0, 0)))),
+    ("add_points", dict(frame_index=0, object_id=2, points=_clicks(1, 0)[0],
+                        labels=_clicks(1, 0)[1])),
+    ("add_points", dict(frame_index=0, object_id=2, points=[_clicks(1, 0)[0][0]],
+                        labels=[1], clear_old_points=False)),
+    ("add_mask", dict(frame_index=8, object_id=3, mask=_seeded_mask(2, 8, 0))),
+    ("add_points", dict(frame_index=8, object_id=1, points=[_clicks(0, 8)[0][0]],
+                        labels=[1])),
+    ("clear_points_in_frame", dict(frame_index=8, object_id=1)),
+    ("propagate_in_video", dict(start_frame_index=0)),
+    ("propagate_in_video", dict(start_frame_index=SRV_FRAMES - 1, reverse=True)),
+    ("cancel", dict(start_frame_index=0)),
+    ("propagate_in_video", dict(start_frame_index=0)),
+    ("remove_object", dict(object_id=2)),
+    ("propagate_in_video", dict(start_frame_index=0, max_frame_num_to_track=7)),
+    ("reset_session", {}),
+    ("add_box", dict(frame_index=4, object_id=5, box=list(_rect(0, 4)))),
+    ("propagate_in_video", dict(start_frame_index=4, max_frame_num_to_track=7)),
+]
+# session B, over GraphQL
+SRV_SCRIPT_B = [
+    ("addPoints", dict(frameIndex=0, objectId=1, points=_clicks(0, 0)[0],
+                       labels=_clicks(0, 0)[1], clearOldPoints=True)),
+    ("addPoints", dict(frameIndex=0, objectId=2, points=[_clicks(1, 0)[0][0]], labels=[1],
+                       clearOldPoints=True)),
+    ("removeObject", dict(objectId=2)),
+    ("addPoints", dict(frameIndex=0, objectId=2, points=_clicks(1, 0)[0],
+                       labels=_clicks(1, 0)[1], clearOldPoints=False)),
+    ("clearPointsInFrame", dict(frameIndex=0, objectId=2)),
+    ("addPoints", dict(frameIndex=0, objectId=2, points=_clicks(1, 0)[0],
+                       labels=_clicks(1, 0)[1], clearOldPoints=True)),
+]
+GQL_MUTATIONS = {
+    "addPoints": "mutation($i: AddPointsInput!) { addPoints(input: $i) { frameIndex "
+                 "rleMaskList { objectId rleMask { size counts } } } }",
+    "removeObject": "mutation($i: RemoveObjectInput!) { removeObject(input: $i) }",
+    "clearPointsInFrame": "mutation($i: ClearPointsInFrameInput!) { clearPointsInFrame("
+                          "input: $i) { success } }",
+    "clearPointsInVideo": "mutation($i: ClearPointsInVideoInput!) { clearPointsInVideo("
+                          "input: $i) { success } }",
+    "cancelPropagateInVideo": "mutation($i: CancelPropagateInVideoInput!) { "
+                              "cancelPropagateInVideo(input: $i) { success } }",
+    "closeSession": "mutation($i: CloseSessionInput!) { closeSession(input: $i) "
+                    "{ success } }",
+    "uploadVideo": "mutation($f: VideoFile!) { uploadVideo(file: $f) { path } }",
+}
+
+
+class _Client:
+    """urllib against the phase's server: JSON in, (status, JSON or bytes)
+    out, HTTP errors returned as their status; each request's round trip
+    timed by kind."""
+
+    def __init__(self, port):
+        self.base = f"http://127.0.0.1:{port}"
+        self.ms = {}
+
+    def _open(self, kind, req, raw=False):
+        import urllib.error
+        import urllib.request
+
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status, ctype, body = r.status, r.headers["Content-Type"], r.read()
+        except urllib.error.HTTPError as e:
+            status, ctype, body = e.code, e.headers["Content-Type"], e.read()
+        self.ms.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        if raw or not ctype.startswith("application/json"):
+            return status, ctype, body
+        return status, json.loads(body)
+
+    def get(self, path, raw=False):
+        return self._open("GET " + path.split("?")[0], self.base + path, raw)
+
+    def post(self, route, payload):
+        import urllib.request
+
+        req = urllib.request.Request(self.base + route, data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        return self._open("POST " + route, req)
+
+    def graphql(self, name, variables):
+        status, d = self.post("/graphql", {"query": GQL_MUTATIONS[name],
+                                           "variables": variables})
+        self.ms.setdefault("GraphQL " + name, []).append(self.ms["POST /graphql"].pop())
+        return status, d
+
+    def stream(self, payload, on_first=None):
+        """POST /propagate_in_video read line by line: (status, lines,
+        bytes, ms); on_first is called after the first line arrives. An
+        error response gives its status and its JSON as the one line."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(self.base + "/propagate_in_video",
+                                     data=json.dumps(payload).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        lines, nbytes = [], 0
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                status = r.status
+                for line in r:
+                    nbytes += len(line)
+                    lines.append(json.loads(line))
+                    if len(lines) == 1 and on_first is not None:
+                        on_first()
+        except urllib.error.HTTPError as e:
+            status = e.code
+            lines.append(json.loads(e.read()))
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ms.setdefault("POST /propagate_in_video", []).append(ms)
+        return status, lines, nbytes, ms
+
+
+def _frame_masks(results):
+    """[{object_id, mask: RLE}] -> {object_id: bool mask}."""
+    from det_sam2_tpu_torch.utils.amg import rle_to_mask
+
+    return {r["object_id"]: rle_to_mask(r["mask"]) for r in results}
+
+
+def _direct_masks(obj_ids, masks):
+    return {o: masks[i, 0] > 0.0 for i, o in enumerate(obj_ids)}
+
+
+def serve_script_a(cli, sid, rec):
+    """SRV_SCRIPT_A over HTTP. rec["masks"] gets, in order, one entry a
+    call that returns masks: a list of (frame, {object: mask})."""
+    from det_sam2_tpu_torch.utils.amg import mask_to_rle
+
+    good = True
+    for route, kw in SRV_SCRIPT_A:
+        body = dict(kw, session_id=sid)
+        if route == "add_mask":
+            body["mask"] = mask_to_rle(kw["mask"][None])[0]
+        if route == "cancel":
+            def cancel():
+                status, d = cli.post("/cancel_propagate_in_video", {"session_id": sid})
+                rec["cancel"] = (status, d)
+            status, lines, _, _ = cli.stream(body, on_first=cancel)
+            rec["canceled_lines"] = len(lines)
+            good &= status == 200 and rec["cancel"] == (200, {"success": True})
+            rec["masks"].append([(x["frame_index"], _frame_masks(x["results"]))
+                                 for x in lines])
+        elif route == "propagate_in_video":
+            status, lines, nbytes, ms = cli.stream(body)
+            good &= status == 200 and all("error" not in x for x in lines)
+            rec["served"].append((len(lines), nbytes, ms))
+            rec["masks"].append([(x["frame_index"], _frame_masks(x["results"]))
+                                 for x in lines])
+        else:
+            status, d = cli.post("/" + route, body)
+            good &= status == 200
+            if "results" in d:
+                rec["masks"].append([(d["frame_index"], _frame_masks(d["results"]))])
+            rec.setdefault("responses", []).append((route, d))
+    return good
+
+
+def direct_script_a(vp, frames, rec):
+    """SRV_SCRIPT_A on the predictor itself, in process: the reference of
+    the served masks. The cancelled propagation pulls as many frames as the
+    served one yielded (its lines + the one it dropped) and stops."""
+    s = vp.init_state(frames)
+    for route, kw in SRV_SCRIPT_A:
+        if route == "add_box":
+            f, ids, m = vp.add_new_points_or_box(s, kw["frame_index"], kw["object_id"],
+                                                 box=np.asarray(kw["box"], np.float32))
+            rec["masks"].append([(f, _direct_masks(ids, m))])
+        elif route == "add_points":
+            f, ids, m = vp.add_new_points_or_box(
+                s, kw["frame_index"], kw["object_id"],
+                points=np.asarray(kw["points"], np.float32),
+                labels=np.asarray(kw["labels"], np.int32),
+                clear_old_points=kw.get("clear_old_points", True))
+            rec["masks"].append([(f, _direct_masks(ids, m))])
+        elif route == "add_mask":
+            f, ids, m = vp.add_new_mask(s, kw["frame_index"], kw["object_id"], kw["mask"])
+            rec["masks"].append([(f, _direct_masks(ids, m))])
+        elif route == "clear_points_in_frame":
+            vp.clear_all_prompts_in_frame(s, kw["frame_index"], kw["object_id"])
+        elif route == "remove_object":
+            vp.remove_object(s, kw["object_id"])
+        elif route == "reset_session":
+            vp.reset_state(s)
+        else:
+            gen = vp.propagate_in_video(
+                s, start_frame_idx=kw["start_frame_index"],
+                max_frame_num_to_track=kw.get("max_frame_num_to_track"),
+                reverse=kw.get("reverse", False))
+            out = []
+            t0 = time.perf_counter()
+            for f, ids, m in gen:
+                out.append((f, _direct_masks(ids, m)))
+                if route == "cancel" and len(out) == rec["canceled_lines"] + 1:
+                    gen.close()
+                    out.pop()
+                    break
+            if route != "cancel":
+                rec["direct"].append((len(out), (time.perf_counter() - t0) * 1e3))
+            rec["masks"].append(out)
+    return s
+
+
+def direct_script_b(vp, frames, rec):
+    """SRV_SCRIPT_B (GraphQL) on the predictor itself."""
+    s = vp.init_state(frames)
+    for name, kw in SRV_SCRIPT_B:
+        if name == "addPoints":
+            f, ids, m = vp.add_new_points_or_box(
+                s, kw["frameIndex"], kw["objectId"],
+                points=np.asarray(kw["points"], np.float32),
+                labels=np.asarray(kw["labels"], np.int32),
+                clear_old_points=kw["clearOldPoints"])
+            rec["masks"].append([(f, _direct_masks(ids, m))])
+        elif name == "removeObject":
+            vp.remove_object(s, kw["objectId"])
+        elif name == "clearPointsInFrame":
+            vp.clear_all_prompts_in_frame(s, kw["frameIndex"], kw["objectId"])
+    return s
+
+
+def _masks_equal(label, ref, got, gate=None) -> bool:
+    """Two lists of calls, each a list of (frame, {object: mask}): the same
+    frames and objects, and every mask equal bit for bit, or with gate, per
+    mask a share of equal pixels >= gate."""
+    same = [[(f, sorted(m)) for f, m in c] for c in ref] == [
+        [(f, sorted(m)) for f, m in c] for c in got]
+    share = [float((a[1][o] == b[1][o]).mean())
+             for ca, cb in zip(ref, got) for a, b in zip(ca, cb) for o in a[1] if o in b[1]]
+    differ = sum(x < 1 for x in share)
+    good = same and (differ == 0 if gate is None else min(share, default=0) >= gate)
+    log(f"[http] {label}: {len(ref)} calls, {len(share)} masks, same frames and objects "
+        f"{same}, masks that differ {differ}, equal pixels min {min(share, default=0):.5f}"
+        + (" (bit for bit)" if gate is None else f" (>= {gate})")
+        + f" {'OK' if good else 'FAIL'}")
+    return good
+
+
+def _watch_engine(eng, rec):
+    """Count the model calls that launch kernels (image encodes: K1 x
+    ENCODE_K1; memory-conditioned calls: K1 x TRACK_K1, K2 x TRACK_K2) and
+    record, for every engine call, its thread and whether grad mode was on.
+    Returns a function that takes the watches off."""
+    import threading
+
+    m = eng.model
+    saved = {}
+
+    def count(obj, name, key):
+        fn = getattr(obj, name)
+        saved[(obj, name)] = fn
+
+        def counted(*a, **kw):
+            rec[key] += 1
+            return fn(*a, **kw)
+        setattr(obj, name, counted)
+
+    def watch(name):
+        fn = getattr(eng, name)
+        saved[(eng, name)] = fn
+
+        def watched(*a, **kw):
+            rec["grad"].append((threading.current_thread().name, torch.is_grad_enabled()))
+            return fn(*a, **kw)
+        setattr(eng, name, watched)
+
+    rec.update(encodes=0, conditioned=0, grad=[])
+    count(m, "forward_image", "encodes")
+    count(m, "attend_memory_banked", "conditioned")
+    for name in ("encode_image", "prompt_step", "track_step", "propagate_window",
+                 "encode_cond_memory", "encode_noncond_memory", "mask_prompt_step",
+                 "empty_mask_ptr", "resize_masks"):
+        watch(name)
+
+    def unwatch():
+        for obj, name in saved:
+            delattr(obj, name)
+    return unwatch
+
+
+def _implied(rec):
+    enc, trk = rec["encodes"], rec["conditioned"]
+    return {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
+            "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _concurrent(cli, sids, n):
+    """One propagation a session, each from its own client thread, all
+    started together: their NDJSON lines."""
+    import threading
+
+    out = [None] * len(sids)
+
+    def run(i):
+        out[i] = cli.stream({"session_id": sids[i], "start_frame_index": 0,
+                             "max_frame_num_to_track": n})
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(sids))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return out
+
+
+def phase_http(dev, results, ckpt, work):
+    """Phase 8. Returns (ok, launches of the served sessions, the engine for
+    phase 9)."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from det_sam2_tpu_torch.build import build_sam2_video_predictor
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.serving.graphql import GraphQLAPI
+    from det_sam2_tpu_torch.serving.inference_api import InferenceAPI
+    from det_sam2_tpu_torch.serving.server import make_handler
+
+    cfg = sam2_1_hiera_s()
+    gpu = gpu_line()
+    videos = [np.stack(synthetic_video(SRV_FRAMES, seed)) for seed in (20, 21)]
+    vp = build_sam2_video_predictor(cfg, ckpt)
+    eng = vp.engine
+    ok = True
+
+    # the reference: both scripts in process on the predictor (kernels' rows
+    # from its calls' inputs); it also warms the engine up
+    resize_s = [0.0]
+    resize = vp._resize
+
+    def timed_resize(*a):
+        t0 = time.perf_counter()
+        out = resize(*a)
+        resize_s[0] += time.perf_counter() - t0
+        return out
+    vp._resize = timed_resize
+    ref_a = {"masks": [], "direct": [], "canceled_lines": None}
+    ref_b = {"masks": []}
+    torch.cuda.synchronize()
+    mem0, live0 = torch.cuda.memory_allocated(), live_bytes()
+    torch.cuda.reset_peak_memory_stats()
+
+    gallery = os.path.join(work, "gallery")
+    os.makedirs(gallery)
+    api = InferenceAPI(vp)
+    gql = GraphQLAPI(api, gallery_dir=gallery, uploads_dir=os.path.join(work, "uploads"))
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(api, gql))
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    cli = _Client(srv.server_address[1])
+    # the binary masks behind every RLE the server sends, in order
+    computed = []
+    rle_masks = api._rle_masks
+
+    def recorded(obj_ids, masks):
+        computed.append(_direct_masks(obj_ids, masks))
+        return rle_masks(obj_ids, masks)
+    api._rle_masks = recorded
+    watch = {}
+    unwatch = _watch_engine(eng, watch)
+    att.reset_launch_counts()
+    try:
+        # round 1: session A over REST, B over GraphQL, a concurrent pair
+        checks = []
+        status, d = cli.get("/healthy")
+        checks.append(("GET /healthy", status == 200 and d == {"status": "ok"}))
+        status, ctype, html = cli.get("/", raw=True)
+        checks.append(("GET /", status == 200 and ctype.startswith("text/html")
+                       and b"det_sam2_tpu_torch" in html))
+        sid_a = api.start_session(videos[0])["session_id"]
+        sid_b = api.start_session(videos[1])["session_id"]
+        status, d = cli.get(f"/session_info?session_id={sid_a}")
+        checks.append(("GET /session_info", status == 200 and d["num_frames"] == SRV_FRAMES
+                       and (d["video_height"], d["video_width"]) == VP_HW))
+        got_a = {"masks": [], "served": []}
+        computed.clear()
+        checks.append(("session A's REST script", serve_script_a(cli, sid_a, got_a)))
+        computed_a = list(computed)
+        computed.clear()
+        got_b = {"masks": []}
+        for name, kw in SRV_SCRIPT_B:
+            status, d = cli.graphql(name, {"i": dict(kw, sessionId=sid_b)})
+            checks.append((f"GraphQL {name}", status == 200 and "errors" not in d))
+            if name == "addPoints" and "data" in d:
+                res = d["data"]["addPoints"]
+                got_b["masks"].append([(res["frameIndex"], _frame_masks(
+                    [{"object_id": r["objectId"], "mask": r["rleMask"]}
+                     for r in res["rleMaskList"]]))])
+        computed_b = list(computed)
+        # planned errors: each a clean error, the next request served
+        status, d = cli.post("/propagate_in_video", {"session_id": "no-such-session"})
+        checks.append(("unknown session: 500 JSON", status == 500
+                       and "unknown session" in d["error"]))
+        status, ctype, body = cli.get(f"/frame?session_id={sid_a}&index=0", raw=True)
+        try:
+            import cv2  # noqa: F401
+            frame_ok = status == 200 and body[:2] == b"\xff\xd8"
+        except ImportError:
+            frame_ok = status == 500 and "cv2" in json.loads(body)["error"]
+        checks.append((f"/frame ({status}, cv2 or its absence named)", frame_ok))
+        status, d = cli.graphql("uploadVideo", {"f": {
+            "contentBase64": "bm90IGEgdmlkZW8=", "filename": "x.mp4"}})
+        checks.append(("GraphQL uploadVideo without a decodable video: errors envelope",
+                       status == 200 and "errors" in d and "data" not in d))
+        status, d = cli.post("/no_such_route", {})
+        checks.append(("unknown route: 404 JSON", status == 404 and "error" in d))
+        status, d = cli.get("/healthy")
+        checks.append(("served after the errors", status == 200))
+        # two sessions propagating at once, then the same one after the other
+        conc = _concurrent(cli, [sid_a, sid_b], SRV_CONCURRENT)
+        serial = [_concurrent(cli, [s], SRV_CONCURRENT)[0] for s in (sid_a, sid_b)]
+        checks.append(("concurrent and serial propagations served",
+                       all(c[0] == 200 for c in conc + serial)))
+        for name in ("clearPointsInVideo", "cancelPropagateInVideo", "closeSession"):
+            status, d = cli.graphql(name, {"i": {"sessionId": sid_b}})
+            checks.append((f"GraphQL {name}", status == 200 and d["data"][name]
+                           == {"success": True}))
+        status, d = cli.post("/close_session", {"session_id": sid_a})
+        checks.append(("POST /close_session", status == 200 and d == {"success": True}))
+        status, d = cli.post("/close_session", {"session_id": sid_a})
+        checks.append(("closing twice: success false", status == 200
+                       and d == {"success": False}))
+        torch.cuda.synchronize()
+        launches = dict(att.LAUNCHES)
+        implied = _implied(watch)
+        peak = torch.cuda.max_memory_allocated()
+        mem1, live1 = torch.cuda.memory_allocated(), live_bytes()
+
+        # round 2: two fresh sessions, a box each, a concurrent pair, closed
+        sids = [api.start_session(v)["session_id"] for v in videos]
+        for s in sids:
+            cli.post("/add_box", {"session_id": s, "frame_index": 0, "object_id": 1,
+                                  "box": list(_rect(0, 0))})
+        conc2 = _concurrent(cli, sids, SRV_CONCURRENT)
+        for s in sids:
+            cli.post("/close_session", {"session_id": s})
+        checks.append(("round 2", all(c[0] == 200 and len(c[1]) == SRV_CONCURRENT + 1
+                                      for c in conc2)))
+        torch.cuda.synchronize()
+        mem2, live2 = torch.cuda.memory_allocated(), live_bytes()
+    finally:
+        unwatch()
+        del api._rle_masks
+        srv.shutdown()
+        srv.server_close()
+        server_thread.join(timeout=60)
+    for label, good in checks:
+        if not good:
+            log(f"[http] {label} FAIL")
+        ok &= good
+    log(f"[http] ({gpu}) {len(checks)} request checks (status codes, clean errors, "
+        f"session ops) {'OK' if all(g for _, g in checks) else 'FAIL'}")
+
+    # the served masks against the masks the server computed: RLE, JSON,
+    # the socket and the client's decode lose nothing
+    for label, got, comp in (("A (REST)", got_a, computed_a), ("B (GraphQL)", got_b,
+                                                                computed_b)):
+        flat = [(f, m) for call in got["masks"] for f, m in call]
+        ok &= _masks_equal(f"session {label}: masks decoded from the responses vs the "
+                           "masks the server computed", [[(f, m) for (f, _), m in
+                                                          zip(flat, comp)]], [flat])
+
+    # the same calls in process on the same predictor, on this thread and on
+    # a worker thread: the same kernels on the same inputs, so the served
+    # masks, the worker thread's session and the concurrent propagations
+    # must equal them bit for bit (the engine keeps torch's cuDNN attention
+    # backend off: its bits depend on the thread); the features of one frame
+    # on both threads are printed
+    resize_s[0] = 0.0
+    ref_a["canceled_lines"] = got_a["canceled_lines"]
+    direct_script_a(vp, videos[0], ref_a)
+    direct_resize = resize_s[0]
+    direct_script_b(vp, videos[1], ref_b)
+    del vp._resize
+    worker = {"masks": [], "direct": [], "canceled_lines": got_a["canceled_lines"]}
+    t = threading.Thread(target=lambda: direct_script_a(vp, videos[0], worker))
+    t.start()
+    t.join()
+    ok &= _masks_equal("session A (REST) vs the same calls in process", ref_a["masks"],
+                       got_a["masks"])
+    ok &= _masks_equal("session B (GraphQL) vs the same calls in process", ref_b["masks"],
+                       got_b["masks"])
+    ok &= _masks_equal("session A in process: a worker thread vs this thread",
+                       ref_a["masks"], worker["masks"])
+    ok &= _masks_equal("concurrent propagations vs the same ones one after the other",
+                       [[(x["frame_index"], _frame_masks(x["results"])) for x in s[1]]
+                        for s in serial],
+                       [[(x["frame_index"], _frame_masks(x["results"])) for x in c[1]]
+                        for c in conc])
+    frame = vp._device_frame(vp.init_state(videos[0][:1]), 0)[None]
+    here = eng.encode_image(frame)
+    box = {}
+    t = threading.Thread(target=lambda: box.update(f=eng.encode_image(frame)))
+    t.start()
+    t.join()
+    log(f"[http] one frame's image features (s0, s1, top), a worker thread vs this thread: "
+        f"max abs diff {[float((a.float() - b.float()).abs().max()) for a, b in zip(here, box['f'])]}"
+        f", this thread again {[float((a.float() - b.float()).abs().max()) for a, b in zip(here, eng.encode_image(frame))]}")
+    handler = [g for t, g in watch["grad"] if t != "MainThread"]
+    good = bool(handler) and not any(handler)
+    log(f"[http] engine calls on handler threads: {len(handler)}, grad mode on in "
+        f"{sum(handler)}; on the main thread {len(watch['grad']) - len(handler)} "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    good = launches == implied
+    log(f"[http] ({gpu}) launches in round 1 {launches}, implied by its calls {implied} "
+        f"({watch['encodes']} encodes x {ENCODE_K1} K1 + {watch['conditioned']} "
+        f"memory-conditioned calls x {TRACK_K1} K1, x {TRACK_K2} K2) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    good = abs(mem2 - mem1) <= MEM_SLACK and abs(live2 - live1) <= MEM_SLACK
+    log(f"[http] ({gpu}) live tensors' bytes: before the first session {live0 / 2 ** 30:.4f} "
+        f"GiB, after round 1 closed {live1 / 2 ** 30:.4f} GiB (one-time: "
+        f"{(live1 - live0) / 2 ** 20:+.1f} MiB), after round 2 closed {live2 / 2 ** 30:.4f} "
+        f"GiB ({(live2 - live1) / 2 ** 20:+.3f} MiB, slack {MEM_SLACK / 2 ** 20:g} MiB); "
+        f"allocator blocks {mem0 / 2 ** 30:.4f} / {mem1 / 2 ** 30:.4f} / "
+        f"{mem2 / 2 ** 30:.4f} GiB ({(mem2 - mem1) / 2 ** 20:+.3f} MiB); peak {peak / 2 ** 30:.3f} GiB {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    served = got_a["served"]
+    n_served = sum(n for n, _, _ in served)
+    http_ms = sum(ms for _, _, ms in served) / n_served
+    n_direct = sum(n for n, _ in ref_a["direct"])
+    direct_ms = sum(ms for _, ms in ref_a["direct"]) / n_direct
+    log(f"[http] ({gpu}) served propagate_in_video over HTTP {http_ms:.3f} ms/frame "
+        f"({n_served} frames, session A); in process {direct_ms:.3f} ms/frame (the same "
+        f"calls); difference (RLE, JSON, socket) {http_ms - direct_ms:+.3f} ms/frame; the "
+        f"host's video-res resize (in process, whole script) "
+        f"{1e3 * direct_resize / n_direct:.3f} ms a yielded frame "
+        f"({1e3 * direct_resize / n_direct / http_ms:.3f} of the served ms/frame); NDJSON "
+        f"{sum(b for _, b, _ in served) / n_served:.0f} bytes/frame")
+    for kind, ms in sorted((k, v) for k, v in cli.ms.items() if v):
+        log(f"[http] ({gpu}) round trip {kind}: {len(ms)} requests, median "
+            f"{float(np.median(ms)):.3f} ms, min {min(ms):.3f}, max {max(ms):.3f}")
+    # the kernels at session A's largest shape (4 object slots, 2 cond
+    # frames attended), on the inputs of a short session of the same prompts
+    keep = {}
+    with _tapped(eng, keep=keep):
+        s = vp.init_state(videos[0][:10])
+        for obj in range(3):
+            vp.add_new_points_or_box(s, 0, obj + 1, box=_rect(obj, 0))
+        vp.add_new_points_or_box(s, 8, 3, box=_rect(2, 8))
+        for _ in vp.propagate_in_video(s, start_frame_idx=0, max_frame_num_to_track=3):
+            pass
+        del s
+    for key in sorted(k for k in keep if k[0] == "k2" and k[1][0] == 4):
+        ok &= _k2_rows(key[1], keep[key], results, gpu, path="http")
+    if ("k1_self", 4) in keep:
+        ok &= _k1_row(keep[("k1_self", 4)], results, gpu, "memory_self_attn_http_4obj",
+                      path="http")
+    else:
+        log("[http] no memory self-attention call at 4 objects FAIL")
+        ok = False
+    del keep, vp, api, gql
+    torch.cuda.empty_cache()
+    return ok, launches, eng
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the batched multi-video streamer (BatchedVideoStreamer)
+# ---------------------------------------------------------------------------
+
+BATCH_VIDEOS = 4
+BATCH_COUNTS = (2,) * BATCH_VIDEOS  # 2 objects a video: 8 object rows
+BATCH_PROMPT = (0, 0, 2, 2)  # each video's prompt frame
+BATCH_WINDOWS = (range(1, 17), range(17, 33))  # two lockstep windows of 16 frames
+
+
+def batched_frames(cfg, dev):
+    """[33, B, 1024, 1024, 3] uint8 on the card: B seeded synthetic 720x1280
+    videos through prepare_frame."""
+    from det_sam2_tpu_torch.utils.misc import prepare_frame
+
+    n = BATCH_WINDOWS[-1].stop
+    vids = [np.stack([prepare_frame(f, cfg.image_size)
+                      for f in synthetic_video(n, 30 + v)]) for v in range(BATCH_VIDEOS)]
+    return torch.as_tensor(np.stack(vids, axis=1)).to(dev)
+
+
+def batched_prompt(cfg, v):
+    """Video v's boxes for its 2 objects at its prompt frame, model pixels:
+    (points [2, 2, 2], labels [2, 2])."""
+    t = BATCH_PROMPT[v]
+    sy, sx = cfg.image_size / VP_HW[0], cfg.image_size / VP_HW[1]
+    pts = np.asarray([[[x0 * sx, y0 * sy], [x1 * sx, y1 * sy]]
+                      for x0, y0, x1, y1 in (_rect(j, t) for j in range(2))], np.float32)
+    return pts, np.asarray([[2, 3], [2, 3]], np.int32)
+
+
+def run_batched(eng, frames, rec=None, windows=None):
+    """The streamer: videos 0-1 prompted at frame 0, 2-3 at frame 2, then
+    the lockstep windows. Returns (streamer, [(pred_masks, obj_ptr, logits,
+    skips) a window]); rec gets each window's ms and the launches of the
+    windows."""
+    from det_sam2_tpu_torch.batched import BatchedVideoStreamer
+    from det_sam2_tpu_torch.ops import attention as att
+
+    cfg = eng.cfg
+    st = BatchedVideoStreamer(eng, BATCH_COUNTS)
+    for t in sorted(set(BATCH_PROMPT)):
+        st.add_prompts(t, NUM_FRAMES, frames[t], {
+            v: batched_prompt(cfg, v) for v in range(BATCH_VIDEOS) if BATCH_PROMPT[v] == t})
+    outs = []
+    torch.cuda.synchronize()
+    att.reset_launch_counts()
+    for w in windows or BATCH_WINDOWS:
+        idx = np.arange(w.start, w.stop)
+        t0 = time.perf_counter()
+        out = st.propagate_window(frames[torch.as_tensor(idx, device=frames.device)], idx,
+                                  NUM_FRAMES)
+        torch.cuda.synchronize()
+        if rec is not None:
+            rec.setdefault("window_ms", []).append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    if rec is not None:
+        rec["launches"] = dict(att.LAUNCHES)
+    return st, outs
+
+
+def run_single_videos(eng, frames, rec, videos=BATCH_VIDEOS, windows=BATCH_WINDOWS):
+    """Each video alone: its own 2-object bank, its prompts, the same two
+    windows through the single-video propagate_window (its prompted frame a
+    skip step). Returns per video [(pred_masks, obj_ptr, logits) a window]."""
+    from det_sam2_tpu_torch.state import init_bank
+
+    out = []
+    rec["window_ms"] = []
+    for v in range(videos):
+        t = BATCH_PROMPT[v]
+        bank = init_bank(eng.cfg, 2, dtype=eng.dtype, attend_cond_tiles=1,
+                         banked_layers=eng.banked_layers, device=frames.device)
+        feats = eng.encode_image(frames[t, v][None])
+        o = eng.prompt_step(feats, bank, t, NUM_FRAMES, *batched_prompt(eng.cfg, v),
+                            is_init=True)
+        eng.encode_cond_memory(feats, bank, t, o["pred_masks"], o["object_score_logits"],
+                               o["obj_ptr"])
+        rows = []
+        for w in windows:
+            idx = list(w)
+            skips = [f == t for f in idx]
+            run = [f for f, s in zip(idx, skips) if not s]
+            img_idx = np.cumsum([not s for s in skips]) - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, r = eng.propagate_window(frames[torch.as_tensor(run, device=frames.device), v],
+                                        bank, idx, skips, NUM_FRAMES, img_idx=img_idx)
+            torch.cuda.synchronize()
+            rec["window_ms"].append((time.perf_counter() - t0) * 1e3)
+            rows.append(r)
+        out.append(rows)
+    return out
+
+
+# share of equal mask signs per (frame, object) between two runs of 16-frame
+# windows that differ in where bf16 rounding happens (a batched GEMM may take
+# another cuBLAS algorithm than a 2-row one; 2 cond tiles attended with the
+# other videos' rows masked vs 1): the multi-frame gate of phase 6
+# (SESSION_AGREE); pointers and object scores within PTR_REL of the
+# largest entry
+def _rows_close(label, ref, got) -> bool:
+    """Two lists of (pred_masks [T, O, 1, s4, s4], obj_ptr, logits) windows
+    of the same rows."""
+    agree, ptr, lg = [], [], []
+    for (rm, rp, rl), (gm, gp, gl) in zip(ref, got):
+        agree.append(((rm.float() > 0) == (gm.float() > 0)).float().flatten(2).mean(2))
+        ptr.append(float((rp - gp).abs().max()) / (PTR_REL * float(rp.abs().max())))
+        lg.append(float((rl - gl).abs().max()) / (PTR_REL * float(rl.abs().max())))
+    agree = torch.cat(agree)  # [frames, objects]
+    live = agree[agree.isfinite()]
+    good = float(live.min()) >= SESSION_AGREE and max(ptr) <= 1 and max(lg) <= 1
+    log(f"[batched] {label}: {agree.shape[0]} frames x {agree.shape[1]} objects, equal "
+        f"mask signs min {float(live.min()):.5f} median {float(live.median()):.5f} (>= "
+        f"{SESSION_AGREE}), obj_ptr max_abs of tolerance {max(ptr):.3f}, object scores "
+        f"{max(lg):.3f} (<= 1) {'OK' if good else 'FAIL'}")
+    return good
+
+
+def _jf(ref, got):
+    """sav_benchmark's J&F of got's masks against ref's (low-res, > 0), one
+    object a row, every frame counted."""
+    from det_sam2_tpu_torch.tools.sav_benchmark import evaluate_videos
+
+    res = {}
+    for v, (r, g) in enumerate(zip(ref, got)):
+        rm = torch.cat([w[0] for w in r]).float().cpu().numpy() > 0
+        gm = torch.cat([w[0] for w in g]).float().cpu().numpy() > 0
+        res[f"video{v}"] = {o: (list(rm[:, o, 0]), list(gm[:, o, 0]))
+                            for o in range(rm.shape[1])}
+    return evaluate_videos(res, skip_first_and_last=False)
+
+
+def phase_batched(dev, results, eng, ckpt):
+    """Phase 9. Returns (ok, launches of the streamer's windows)."""
+    from det_sam2_tpu_torch.batched import BatchedVideoStreamer
+    from det_sam2_tpu_torch.build import build_sam2_engine
+    from det_sam2_tpu_torch.ops import attention as att
+
+    cfg = eng.cfg
+    gpu = gpu_line()
+    frames = batched_frames(cfg, dev)
+    ok = True
+    b, o_total, steps = BATCH_VIDEOS, sum(BATCH_COUNTS), sum(len(w) for w in BATCH_WINDOWS)
+
+    # the kernels' run: times, launches, memory
+    rec = {}
+    run_batched(eng, frames, windows=BATCH_WINDOWS[:1])  # warm-up: the batch's set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, outs = run_batched(eng, frames, rec)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_fwd": steps * (ENCODE_K1 + TRACK_K1), "flash_banked_keys": steps * TRACK_K2,
+            "flash_banked_fwd": steps * TRACK_K2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    launches = rec["launches"]
+    good = launches == want
+    log(f"[batched] ({gpu}) launches over {steps} lockstep steps {launches}, expected "
+        f"{want} (a step: {ENCODE_K1} K1 of one batched encode of {b} frames + {TRACK_K1} "
+        f"K1 memory self-attention on {o_total} rows, {TRACK_K2} + {TRACK_K2} K2) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    skips = outs[0][3]
+    i2 = list(BATCH_WINDOWS[0]).index(2)
+    skipped = [r for v in range(b) if skips[i2, v] for r in range(*st._rows(v).indices(o_total))]
+    zero = all(not bool(x[i2, skipped].any()) for x in outs[0][:3])
+    good = skips[i2].tolist() == [False, False, True, True] and zero and not skips[
+        np.arange(len(skips)) != i2].any() and not outs[1][3].any()
+    log(f"[batched] frame 2 skips videos {np.nonzero(skips[i2])[0].tolist()} only, their "
+        f"rows zero {zero} {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    # an all-skip step: no encode, no launch, no write
+    bank = st.bank
+    copy = dataclasses.replace(bank, **{f.name: getattr(bank, f.name).clone()
+                                        for f in dataclasses.fields(bank)
+                                        if torch.is_tensor(getattr(bank, f.name))})
+    att.reset_launch_counts()
+    _, rows = eng.propagate_window_batched(frames[:0], bank, [33], np.ones((1, b), bool),
+                                           NUM_FRAMES, BATCH_COUNTS)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(bank, f.name), getattr(copy, f.name))
+               for f in dataclasses.fields(bank) if torch.is_tensor(getattr(bank, f.name)))
+    good = not any(att.LAUNCHES.values()) and same and not any(bool(x.any()) for x in rows)
+    log(f"[batched] an all-skip step: launches {dict(att.LAUNCHES)}, bank unchanged {same}, "
+        f"rows zero {'OK' if good else 'FAIL'}")
+    ok &= good
+    del copy
+
+    # the guards
+    raised = []
+    try:
+        st.add_prompts(0, NUM_FRAMES, frames[0], {})
+    except ValueError as e:
+        raised.append("empty prompts" in str(e))
+    span = (cfg.num_maskmem - 1) * max(1, cfg.memory_temporal_stride_for_eval)
+    n = cfg.noncond_bank_size - span + 1
+    try:
+        sk = np.zeros((n, b), bool)
+        sk[:, 0] = True
+        eng.propagate_window_batched(None, st.bank, list(range(n)), sk, NUM_FRAMES,
+                                     BATCH_COUNTS)
+    except ValueError as e:
+        raised.append("single-session-exact" in str(e))
+    saved_cfg = eng.cfg
+    eng.cfg = dataclasses.replace(cfg, non_overlap_masks_for_mem_enc=True)
+    try:
+        for call in (lambda: BatchedVideoStreamer(eng, BATCH_COUNTS),
+                     lambda: eng.propagate_window_batched(None, st.bank, [1], [[False] * b],
+                                                          NUM_FRAMES, BATCH_COUNTS)):
+            try:
+                call()
+            except NotImplementedError:
+                raised.append(True)
+    finally:
+        eng.cfg = saved_cfg
+    good = raised == [True] * 4
+    log(f"[batched] the empty-prompts ValueError, the capacity guard ({n} skips of one "
+        f"video: noncond_bank_size {cfg.noncond_bank_size} < span {span} + {n}), the "
+        f"non-overlap refusal (streamer, window): raised {raised} "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+
+    # each video's rows against its own single-video session
+    single_rec = {}
+    run_single_videos(eng, frames, {}, videos=1, windows=BATCH_WINDOWS[:1])  # warm-up
+    singles = run_single_videos(eng, frames, single_rec)
+    per_video = [[tuple(st.split(x)[v] for x in w[:3]) for w in outs] for v in range(b)]
+    for v in range(b):
+        ok &= _rows_close(f"video {v}: batched vs its own single-video windows",
+                          singles[v], per_video[v])
+    jf = _jf(singles, per_video)
+    log(f"[batched] J&F of the batched masks against the single-video sessions' "
+        f"(tools.sav_benchmark, {b} videos x 2 objects, {steps} frames): "
+        f"{json.dumps(jf)}")
+    step_ms = sum(rec["window_ms"]) / steps
+    single_ms = sum(single_rec["window_ms"]) / (b * steps)
+    log(f"[batched] ({gpu}) BatchedVideoStreamer, hiera-S {cfg.image_size}^2 "
+        f"{str(eng.dtype)[6:]} banked, "
+        f"{b} videos x 2 objects ({o_total} rows), {len(BATCH_WINDOWS)} windows of "
+        f"{len(BATCH_WINDOWS[0])}: {step_ms:.3f} ms per lockstep step, "
+        f"{step_ms / b:.3f} ms per stream-frame; the same videos one after another as "
+        f"single-video windows {single_ms:.3f} ms per stream-frame (ratio "
+        f"{single_ms / (step_ms / b):.3f}); windows {[round(x, 1) for x in rec['window_ms']]}"
+        f" ms; peak_mem {peak / 2 ** 30:.3f} GiB")
+    del singles, single_rec
+
+    # in context: every K1 (Hiera global, memory self) and K2 call held
+    # against its plain version on its own inputs
+    keep = {}
+    with _tapped(eng, check=True, keep=keep, check_self=True) as (_, shapes, held), \
+            _k1_tapped(eng, check=True) as held_enc:
+        run_batched(eng, frames)
+    ok &= _held_in_context("batched, kernels", held,
+                           "memory attention calls (K2 cross, K1 self)")
+    ok &= _held_in_context("batched, kernels", held_enc, "Hiera global attention calls")
+    good = {k for k in shapes} == {(o_total, 2 + cfg.num_maskmem - 1 + 1)}
+    log(f"[batched] K2 shapes (rows, slots) {sorted(set(shapes))} "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    fault = "K2 reads the slots rolled by one"
+    with _tapped(eng, check=True, fault=fault) as (_, _, held_f):
+        run_batched(eng, frames, windows=BATCH_WINDOWS[:1])
+    caught = not _held_in_context(f"batched, planted '{fault}'", held_f)
+    log(f"[checks] batched planted fault '{fault}': "
+        f"{'caught by the in-context check' if caught else 'MISSED'}")
+    ok &= caught
+
+    # the same run with every kernel replaced by its plain version
+    plain_eng = build_sam2_engine(cfg, ckpt, plain_kernels=True)
+    _, plain = run_batched(plain_eng, frames)
+    del plain_eng
+    ok &= _rows_close("plain kernels vs kernels, all rows", [w[:3] for w in plain],
+                      [w[:3] for w in outs])
+    for key in sorted(k for k in keep if k[0] == "k2"):
+        ok &= _k2_rows(key[1], keep[key], results, gpu, path="batched")
+    if ("k1_self", o_total) in keep:
+        ok &= _k1_row(keep[("k1_self", o_total)], results, gpu,
+                      f"memory_self_attn_batched_{o_total}obj", path="batched")
+    else:
+        log(f"[batched] no memory self-attention call at {o_total} rows FAIL")
+        ok = False
+    del keep, st, outs, plain, frames
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -2481,15 +3410,27 @@ def main() -> int:
         ok &= ok_img
         log(f"[time] phase 7 (image predictor, AMG) {time.time() - t_phase:.1f} s "
             f"({gpu_line()})")
+        t_phase = time.time()
+        ok_http, http, eng = phase_http(dev, results, ckpt, work)
+        ok &= ok_http
+        log(f"[time] phase 8 (HTTP server) {time.time() - t_phase:.1f} s ({gpu_line()})")
+        t_phase = time.time()
+        ok_batched, batched = phase_batched(dev, results, eng, ckpt)
+        ok &= ok_batched
+        del eng
+        log(f"[time] phase 9 (batched streamer) {time.time() - t_phase:.1f} s "
+            f"({gpu_line()})")
     counts = {"serving": serving, "training": training, "predictor": predictor,
-              "application": application, "image": image}
+              "application": application, "image": image, "http": http,
+              "batched": batched}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
     for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                         ("predictor", serving_kernels), ("application", serving_kernels),
-                        ("image", ("flash_fwd",))):
+                        ("image", ("flash_fwd",)), ("http", serving_kernels),
+                        ("batched", serving_kernels)):
         for name in names:
             if counts[path][name] <= 0:
                 log(f"[main] kernel {name} was not launched by the {path} path")

@@ -257,6 +257,14 @@ MODEL_CONFIGS = {
     "hiera_l": sam2_1_hiera_l,
 }
 
+# The reference container's MODEL_SIZE vocabulary (demo/backend,
+# download_ckpts.sh) mapped onto the preset names; serving.server.env_config
+# accepts both.
+MODEL_SIZE_ALIASES = {
+    "tiny": "hiera_t", "small": "hiera_s",
+    "base_plus": "hiera_b+", "large": "hiera_l",
+}
+
 
 def with_image_size(cfg: SAM2Config, size: int) -> SAM2Config:
     """The same model at another input resolution: the RoPE grid tracks

@@ -75,6 +75,14 @@ def _fill_stacked(cfg: SAM2Config, low: torch.Tensor) -> torch.Tensor:
                       for c in low.split(chunk)])
 
 
+def _c_strides(shape) -> tuple:
+    strides, acc = [], 1
+    for n in reversed(shape):
+        strides.append(acc)
+        acc *= n
+    return tuple(reversed(strides))
+
+
 def _broadcast_feats(feats, o: int):
     return tuple(
         f.expand((o,) + tuple(f.shape[1:])) if f.shape[0] == 1 else f
@@ -200,6 +208,13 @@ class SAM2Engine:
             if isinstance(m, LayerNorm):
                 m.float()
         self.model = model
+        if self.device.type == "cuda":
+            # torch's cuDNN attention backend, its first pick for Hiera's
+            # windowed attention on an H100, rounds by the calling thread's
+            # cuDNN handle: a session served on the server's handler threads
+            # would differ from the same session on another thread. The
+            # flash and efficient backends do not. The switch is process-wide.
+            torch.backends.cuda.enable_cudnn_sdp(False)
 
     @property
     def banked_layers(self) -> int:
@@ -228,14 +243,21 @@ class SAM2Engine:
 
     @torch.no_grad()
     def encode_image(self, img):
-        """img [1, H, W, 3] (uint8 raw or normalised float) -> (feat_s0,
-        feat_s1, feat), NHWC."""
-        return self.model.forward_image(normalize_image(self._t(img)))
+        """img [B, H, W, 3] (uint8 raw or normalised float) -> (feat_s0,
+        feat_s1, feat), NHWC. The frames are copied to C-order strides
+        first when they have others (a numpy view can carry any stride on
+        a size-1 axis): the trunk's first convolution picks its algorithm,
+        and so its rounding, by the input's strides."""
+        img = self._t(img)
+        if img.stride() != _c_strides(img.shape):
+            img = img.clone(memory_format=torch.contiguous_format)
+        return self.model.forward_image(normalize_image(img))
 
     def _track(self, feats, bank, frame_idx, num_frames, reverse, obj_valid,
                fill: bool = True):
         """Memory read -> SAM heads -> memory write (in place) -> outputs
-        (pred_masks hole-filled unless fill=False)."""
+        (pred_masks hole-filled unless fill=False). feats have a batch of 1
+        (broadcast over the objects) or one row an object."""
         cfg, m = self.cfg, self.model
         o = bank.num_objects
         s0, s1, feat = _broadcast_feats(feats, o)
@@ -430,26 +452,108 @@ class SAM2Engine:
         identity). A skip step does no inference, writes nothing and returns
         zero rows. Returns (bank, (pred_masks [T, O, 1, s4, s4] fp16, obj_ptr
         [T, O, C] fp32, object_score_logits [T, O, 1] fp32)), on the engine's
-        device: nothing is read back to the host."""
+        device: nothing is read back to the host. The window is
+        propagate_window_batched's with one video."""
+        one = ([f[None] for f in images] if isinstance(images, (list, tuple))
+               else images[:, None])
+        return self.propagate_window_batched(
+            one, bank, frame_indices, np.asarray(skips, bool)[:, None], num_frames,
+            (bank.num_objects,), reverse=reverse, obj_valid=obj_valid,
+            img_idx=img_idx)
+
+    @torch.no_grad()
+    def propagate_window_batched(self, images, bank: MemoryBank, frame_indices,
+                                 skips, num_frames: int, counts,
+                                 reverse: bool = False, obj_valid=None,
+                                 img_idx=None):
+        """Track B videos in lockstep through one window (the JAX engine's
+        ``_batched_window_fn`` body as a loop).
+
+        The bank's object axis is every video's objects concatenated: video
+        v owns rows sum(counts[:v]) .. + counts[v] (bank.num_objects ==
+        sum(counts)). Each step encodes the B frames in one encode_image
+        call, gives each object row its video's features and runs
+        stream_step's per-frame body (``_track``) on the merged bank. The
+        memory encoder's non-overlap constraint couples objects, so it is
+        refused across videos and is the config's with one video.
+
+        images: the steps to RUN, [N, B, H, W, 3] uint8 (a tensor, an array
+        or a sequence of [B, H, W, 3]); frame_indices [T] the shared frame
+        clock; skips [T, B] per (step, video), host values; img_idx [T] maps
+        each step to its row of images (None = identity). A step where only
+        some videos skip still runs every row, writes the non-cond slot for
+        the rows of the others (obj_valid & ~skip) and returns zero rows for
+        the skipped videos; a step where every video skips encodes nothing,
+        writes nothing and returns zero rows. Returns (bank, (pred_masks [T,
+        O_total, 1, s4, s4] fp16, obj_ptr [T, O_total, C] fp32,
+        object_score_logits [T, O_total, 1] fp32)) on the engine's device,
+        the fp16 logits hole-filled once over the window (``_fill_stacked``).
+
+        Capacity: a partly skipped step still takes a non-cond slot, so a
+        skipped video holds more slots than its own session would; once the
+        bank is full, eviction could drop a memory its own session keeps.
+        Exactness needs noncond_bank_size >= the strided read span
+        ((num_maskmem - 1) * stride) + the most skips of one video in the
+        window; a window that breaks it raises."""
         cfg, dev = self.cfg, self.device
+        counts = tuple(int(c) for c in counts)
+        b, o_total = len(counts), sum(counts)
+        if bank.num_objects != o_total:
+            raise ValueError(
+                f"bank has {bank.num_objects} object rows, counts "
+                f"{counts} sum to {o_total}"
+            )
+        if cfg.non_overlap_masks_for_mem_enc and b > 1:
+            raise NotImplementedError(
+                "non_overlap_masks_for_mem_enc couples objects across "
+                "videos; batched windows require it off (it is off in "
+                "every reference config)"
+            )
         frame_indices = np.asarray(frame_indices).tolist()
-        skips = np.asarray(skips, bool).tolist()
         t = len(frame_indices)
+        skips = np.asarray(skips, bool).reshape(t, b)
+        if skips.size and b > 1:
+            span = (cfg.num_maskmem - 1) * max(1, cfg.memory_temporal_stride_for_eval)
+            max_skips = int(skips.sum(axis=0).max())
+            if max_skips and cfg.noncond_bank_size < span + max_skips:
+                raise ValueError(
+                    f"noncond_bank_size={cfg.noncond_bank_size} cannot "
+                    f"guarantee single-session-exact eviction for a video "
+                    f"with {max_skips} skipped steps this window (needs >= "
+                    f"read span {span} + {max_skips}); enlarge the bank or "
+                    f"shorten the window"
+                )
         img_idx = list(range(t)) if img_idx is None else np.asarray(img_idx).tolist()
-        o, s4 = bank.num_objects, cfg.image_size // 4
-        valid = self._obj_valid(obj_valid, o)  # uploaded once a window
-        low = torch.zeros((t, o, 1, s4, s4), dtype=torch.float16, device=dev)
-        ptr = torch.zeros((t, o, cfg.hidden_dim), dtype=torch.float32, device=dev)
-        logits = torch.zeros((t, o, 1), dtype=torch.float32, device=dev)
+        s4 = cfg.image_size // 4
+        video_of_obj = np.repeat(np.arange(b), counts)
+        skip_o = skips[:, video_of_obj]  # [T, O_total]
+        # uploaded once a window: each object row's video, the rows each step
+        # writes, the rows each step zeroes
+        rows = torch.as_tensor(video_of_obj, device=dev)
+        valid = self._obj_valid(obj_valid, o_total)
+        skip_dev = torch.as_tensor(skip_o, device=dev)
+        write_valid = valid[None] & ~skip_dev
+        low = torch.zeros((t, o_total, 1, s4, s4), dtype=torch.float16, device=dev)
+        ptr = torch.zeros((t, o_total, cfg.hidden_dim), dtype=torch.float32, device=dev)
+        logits = torch.zeros((t, o_total, 1), dtype=torch.float32, device=dev)
         for i in range(t):
-            if skips[i]:
+            if skips[i].all():
                 continue
-            feats = self.encode_image(images[img_idx[i]][None])
+            feats = self.encode_image(images[img_idx[i]])
+            if b > 1:  # one video's features stay a batch of 1 (broadcast)
+                feats = tuple(f.index_select(0, rows) for f in feats)
             _, out = self._track(feats, bank, frame_indices[i], int(num_frames),
-                                 bool(reverse), valid, fill=False)
-            low[i] = out["pred_masks"]  # rounded to fp16 before the fill
-            ptr[i] = out["obj_ptr"]
-            logits[i] = out["object_score_logits"]
+                                 bool(reverse), write_valid[i], fill=False)
+            if skip_o[i].any():
+                sk = skip_dev[i]
+                low[i] = torch.where(sk[:, None, None, None], 0.0, out["pred_masks"])
+                ptr[i] = torch.where(sk[:, None], 0.0, out["obj_ptr"].float())
+                logits[i] = torch.where(sk[:, None], 0.0,
+                                        out["object_score_logits"].float())
+            else:
+                low[i] = out["pred_masks"]  # rounded to fp16 before the fill
+                ptr[i] = out["obj_ptr"]
+                logits[i] = out["object_score_logits"]
         return bank, (_fill_stacked(cfg, low), ptr, logits)
 
     @torch.no_grad()

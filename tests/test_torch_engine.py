@@ -168,11 +168,16 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = res.stdout.split()
-    assert len(mods) >= 42  # every submodule, training/, utils/ and app/ too
+    # every submodule, training/, utils/, app/, serving/ and tools/ too
+    assert len(mods) >= 55
     for m in ("utils.misc", "video_predictor", "build", "image_predictor",
               "automatic_mask_generator", "utils.amg", "utils.profiling",
               "app.detector", "app.rtsp", "app.video_processor", "app.postprocess",
-              "app.pipeline", "app.eval", "app.frames2video", "app.result_visualize"):
+              "app.pipeline", "app.eval", "app.frames2video", "app.result_visualize",
+              "batched", "serving.inference_api", "serving.transcode",
+              "serving.graphql", "serving.frontend", "serving.server",
+              "tools.sav_benchmark", "tools.sav_utils", "tools.vos_inference",
+              "tools.extract_frames", "tools.process_dataset"):
         assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 

@@ -329,3 +329,85 @@ def test_backward_kernels_are_deterministic_on_cuda(dev, dtype):
     first = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
     second = (att.flash_bwd_dq(*args),) + att.flash_bwd_dkv(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_k2_at_the_batched_streamers_8_object_rows_on_cuda(dev):
+    """K2 at the batched streamer's shape (4 videos x 2 objects = 8 object
+    rows, 2 cond tiles attended: 9 slots) in bf16 at the serving widths, each
+    video's rows live only in its own cond tile (the other video's cond
+    frame masked, as the merged bank's per-object validity does). The
+    pre-pass equals its plain version bit for bit; the whole K2 holds
+    against its plain version; K2 reading the slots rolled by one (a
+    planted fault) must fail the tolerance."""
+    from det_sam2_tpu_torch.modeling.position_encoding import axial_rope_cos_sin
+
+    dt = torch.bfloat16
+    b, nq, s, d, cm, nl, ktot, layer = 8, 1024, 4096, 256, 64, 4, 12, 2
+    t = 2 + 6 + 1
+    g = torch.Generator(device=dev).manual_seed(80)
+    q = torch.randn(b, nq, d, generator=g, device=dev).to(dt)
+    mem_k = torch.randn(ktot, b, nl, s, d, generator=g, device=dev).to(dt)
+    mem_v = torch.randn(ktot, b, s, cm, generator=g, device=dev).to(dt)
+    slots = torch.tensor([0, 1, 4, 5, 6, 7, 8, 9, ktot - 1], dtype=torch.int32, device=dev)
+    w = torch.randn(t, d, generator=g, device=dev)
+    w[-1] = 0.0  # the staging tile is not rotated
+    cos, sin = (torch.as_tensor(x, device=dev) for x in axial_rope_cos_sin(d, 64, 64))
+    live = torch.ones(b, t, s, dtype=torch.bool, device=dev)
+    live[:4, 1] = False  # videos 0-1: prompted at the first cond frame only
+    live[4:, 0] = False  # videos 2-3: at the second
+    live[:, -1, 16:] = False  # 16 pointer tokens in the staging tile
+    bias = torch.where(live, 0.0, -1e30).reshape(b, t * s)
+    args = (q, mem_k, mem_v, slots, w, bias, cos, sin, layer)
+    before = dict(att.LAUNCHES)
+    out = att.flash_attention_banked_fwd(*args)
+    for name in ("flash_banked_keys", "flash_banked_fwd"):
+        assert att.LAUNCHES[name] == before[name] + 1, name
+    ref = att.flash_attention_banked_ref(*args)
+    _assert_held(out, ref)
+    keys = att.flash_banked_keys(mem_k, slots, w, cos, sin, layer, s)
+    assert torch.equal(keys, att.banked_keys(mem_k, slots, w, cos, sin, layer, dt, s))
+    bad = att.flash_attention_banked_fwd(q, mem_k, mem_v, torch.roll(slots, 1), *args[4:])
+    with pytest.raises(AssertionError):
+        _assert_held(bad, ref)
+
+
+@pytest.mark.cuda
+def test_k1_at_the_batched_streamers_memory_self_attention_on_cuda(dev):
+    """K1 at the batched streamer's memory self-attention ([8 object rows,
+    4096, 256] bf16, no bias) against flash_attention_ref; the planted
+    wrong-ring-stage fault must fail."""
+    q, k, v = (_rand((8, 4096, 256), 30 + i).to(dev, torch.bfloat16) for i in range(3))
+    before = att.LAUNCHES["flash_fwd"]
+    out, _ = att.flash_attention_fwd(q, k, v)
+    assert att.LAUNCHES["flash_fwd"] == before + 1
+    ref, _ = att.flash_attention_ref(q, k, v)
+    _assert_held(out, ref)
+    bad, _ = att.flash_attention_fwd(
+        q, k, v, fault=att.FWD_FAULTS["consumer reads the wrong ring stage"])
+    with pytest.raises(AssertionError):
+        _assert_held(bad, ref)
+
+
+@pytest.mark.cuda
+def test_engine_encodes_the_same_bits_on_any_thread_on_cuda(dev):
+    """A CUDA engine turns torch's cuDNN attention backend off: at Hiera-S's
+    windowed-attention shapes it is torch's first pick on an H100 and its
+    bits depend on the calling thread, so a session served on the server's
+    handler threads would differ from the same session on another thread."""
+    import threading
+
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.track import SAM2Engine
+
+    eng = SAM2Engine(sam2_1_hiera_s(), dtype=torch.bfloat16, device=dev, seed=0)
+    assert not torch.backends.cuda.cudnn_sdp_enabled()
+    frame = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (1, 1024, 1024, 3), dtype=np.uint8)).to(dev)
+    here = eng.encode_image(frame)
+    for _ in range(3):
+        box = {}
+        t = threading.Thread(target=lambda: box.update(f=eng.encode_image(frame)))
+        t.start()
+        t.join()
+        assert all(torch.equal(a, b) for a, b in zip(here, box["f"]))
