@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # nine phases, one card
+    python3 chip_smoke.py            # ten phases, one card
 
 Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
@@ -98,6 +98,28 @@ SESSION_AGREE, pointers and scores within PTR_REL), every K1 / K2 call held
 in context, a planted K2 fault that must fail. Prints ms per lockstep step
 and per stream-frame beside the single-video windows, the J&F between them,
 peak memory.
+Phase 10 (the training stack): a NCCL process group of world size 1 made by
+launch.init_distributed on 127.0.0.1; Trainer.run over a VOSDataLoader with
+the MOSE recipe's augmentations (hflip, affine 1.0, resize to 1024, the
+consistent and per-frame jitter, grayscale 0.05) reading seeded in-memory
+720x1280 clips with three moving rectangles, 2 epochs x 3 steps of the
+recipe's sampled prompt schedules (hiera-b+ 1024^2 fp32, T = 8, 3 objects,
+drop-path 0.1, remat), DDP-wrapped, a checkpoint each epoch. Checks: every
+loss finite; K1 / K3a / K3b launches as the schedules imply; a fresh
+trainer loaded from ckpt_0000.pt equal bit for bit to what was saved (and
+from ckpt_0001.pt to the live trainer); one step of the restored trainer
+against the live one, a DDP world-1 step against the unwrapped step, an
+FSDP (fully_shard) step against the DDP step, each bit for bit or within
+phase 4's rounding gate (loss terms, grad_norm, the watched gradients, the
+update); a frozen-pattern step leaving the image encoder bit for bit; a
+zeroed dq planted in K3a's wrapper that must fail that check; validate and
+validate_jf over two 16-frame clips on the trained engine (grad off in
+every engine call, training mode restored, every K2 call held in context
+against its plain version, launches as the predictor's calls imply).
+Prints ms per step beside phase 4's bare step, the loader's host ms per
+batch and per stage, peak memory, checkpoint bytes and save / load
+seconds, a profiled step's device busy time and idle share, J&F, and K2 in
+fp32 at validate_jf's shape against its plain version.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -784,6 +806,9 @@ def profile_steps(eng, frames, bank):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(
+                "DistributedDataParallel."):  # a range around the forward, not a kernel
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -1147,6 +1172,7 @@ def phase_train(dev):
         f"batch 1, drop_path_rate {cfg.hiera.drop_path_rate}, remat on, "
         f"{sum(p.numel() for p in model.parameters())} parameters")
     ok = True
+    step_ms = []
     torch.cuda.synchronize()
     att.reset_launch_counts()
     for i, (seed, sch) in enumerate(schedules):
@@ -1156,6 +1182,7 @@ def phase_train(dev):
         metrics = step(images, gt, gen, schedule=sch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        step_ms.append(ms)
         vals = {k: float(v) for k, v in metrics.items()}
         got = {k: att.LAUNCHES[k] - before[k] for k in
                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
@@ -1175,21 +1202,25 @@ def phase_train(dev):
     profile_train_step(step, images, gt, gen, schedules[0][1])
     del opt, step, model
     torch.cuda.empty_cache()
-    return ok, launches, (cfg, recipe, images, gt)
+    return ok, launches, (cfg, recipe, images, gt, step_ms)
 
 
-def profile_train_step(step, images, gt, gen, sch):
+def profile_train_step(step, images, gt, gen, sch, tag="train-profile"):
     """One more train step (after the counts were read) under
-    torch.profiler: device time by kernel and the device's idle share."""
+    torch.profiler: device time by kernel and the device's idle share.
+    Returns (wall ms, device busy ms, the step's metrics)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(images, gt, gen, schedule=sch)
+        metrics = step(images, gt, gen, schedule=sch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(
+                "DistributedDataParallel."):  # a range around the forward, not a kernel
+            continue
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
@@ -1197,11 +1228,12 @@ def profile_train_step(step, images, gt, gen, sch):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[train-profile] one {_kind(sch)} step under torch.profiler: wall {wall_ms:.1f} ms, "
+    log(f"[{tag}] one {_kind(sch)} step under torch.profiler: wall {wall_ms:.1f} ms, "
         f"device busy {busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}, "
         f"{sum(r[1] for r in rows)} device operations under {len(rows)} names")
     for ms, n, key in rows[:15]:
-        log(f"[train-profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{n}  {key[:90]}")
+        log(f"[{tag}]   {ms:9.2f} ms {100 * ms / busy:5.1f}%  x{n}  {key[:90]}")
+    return wall_ms, busy, metrics
 
 
 @contextlib.contextmanager
@@ -1253,11 +1285,11 @@ def phase_train_checks(dev, state):
     backward on the card (same parameters, data, drop-path masks and box
     noise), gated by the spread of two plain runs that differ only in
     rounding; two sessions with a fault planted in K3's wrappers must fail
-    the gate."""
+    the gate. Returns (ok, the gate)."""
     from det_sam2_tpu_torch.ops import attention as att
     from det_sam2_tpu_torch.training.sam2_train import PromptSchedule
 
-    cfg, recipe, images, gt = state
+    cfg, recipe, images, gt, _ = state
     sch = PromptSchedule(init_cond_frames=(0,), frames_to_correct=(), use_pt_input=True,
                          use_box_per_frame=(True,), num_correction_pt=0)
     loss_fn = recipe.loss
@@ -1319,7 +1351,7 @@ def phase_train_checks(dev, state):
         ok &= caught
     del model
     torch.cuda.empty_cache()
-    return ok
+    return ok, gate
 
 
 # ---------------------------------------------------------------------------
@@ -1545,7 +1577,8 @@ def _k2_rows(key, args, results, gpu, path="predictor") -> bool:
             name=f"{name}:{label}", route="cuda", source=src, replaces=K2_TPU,
             kernel=name, path=path, dtype=str(dtype)[6:], shape=shape,
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            bound_scheme=("bf16 tensor cores: FLOPs / 989 TFLOP/s" if by == "operations"
+            bound_scheme=(("bf16 tensor cores: FLOPs / 989 TFLOP/s" if dtype == torch.bfloat16
+                           else "fp32 CUDA cores: FLOPs / 67 TFLOP/s") if by == "operations"
                           else "memory: bytes / 3.35 TB/s"), library_ms=None))
     return good
 
@@ -3301,6 +3334,441 @@ def phase_batched(dev, results, eng, ckpt):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the training stack (Trainer, VOSDataLoader, launch, checkpoints)
+# ---------------------------------------------------------------------------
+
+TRN_EPOCHS, TRN_STEPS = 2, 3  # Trainer.run: 2 epochs x 3 steps, a checkpoint each epoch
+TRN_VIDEOS, TRN_FRAMES = 2, 12  # the in-memory dataset the loader samples clips from
+JF_VIDEOS, JF_FRAMES = 2, 16  # validate / validate_jf clips
+FREEZE = ("image_encoder.*",)  # the frozen-pattern run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _train_rect(j, t):
+    """Object j's rectangle (x0, y0, x1, y1) at frame t of a training video:
+    near the centre, so that the recipe's rotation and shear keep it in the
+    frame and every object row stays valid."""
+    x0, y0 = 400 + 200 * j + 3 * t, 220 + 90 * j + 2 * t
+    return x0, y0, x0 + 150, y0 + 110
+
+
+class MemoryVideos:
+    """The raw-dataset interface (videos, frame_names, load_frames) over
+    seeded in-memory 720x1280 videos: noise frames with three moving
+    rectangles, each an object. The card's machine has no PIL to read image
+    files, so the loader reads arrays."""
+
+    def __init__(self, n_videos, n_frames, seed, rect=_train_rect):
+        self.videos = [f"video_{i}" for i in range(n_videos)]
+        self.n = n_frames
+        self.rect = rect
+        colours = ((230, 60, 50), (50, 220, 80), (60, 90, 240))
+        self.frames = {}
+        for i, v in enumerate(self.videos):
+            rng = np.random.default_rng(seed + i)
+            frames = rng.integers(0, 100, (n_frames,) + VP_HW + (3,), dtype=np.uint8)
+            for t in range(n_frames):
+                for j, c in enumerate(colours):
+                    x0, y0, x1, y1 = rect(j, t)
+                    frames[t, y0:y1, x0:x1] = c
+            self.frames[v] = frames
+
+    def mask(self, j, t):
+        m = np.zeros(VP_HW, bool)
+        x0, y0, x1, y1 = self.rect(j, t)
+        m[y0:y1, x0:x1] = True
+        return m
+
+    def frame_names(self, video):
+        return [f"{i:05d}" for i in range(self.n)]
+
+    def load_frames(self, video, names):
+        from det_sam2_tpu_torch.training.dataset import VideoClip
+
+        idx = [int(n) for n in names]
+        return VideoClip([self.frames[video][t] for t in idx],
+                         [{j + 1: self.mask(j, t) for j in range(3)} for t in idx])
+
+
+class _TimedLoader:
+    """A loader whose batches' host time (the numpy sampling, warp, resize
+    and jitter) is recorded, each batch's valid object rows too."""
+
+    def __init__(self, loader, rec):
+        self.loader, self.rec = loader, rec
+
+    def batches(self, n):
+        it = self.loader.batches(n)
+        while True:
+            t0 = time.perf_counter()
+            item = next(it, None)
+            if item is None:
+                return
+            self.rec["loader_ms"].append((time.perf_counter() - t0) * 1e3)
+            self.rec["rows"].append(int((item[1] > 0).any((0, 3, 4)).sum()))
+            self.rec["last"] = item
+            yield item
+
+
+def _snapshot(state):
+    """A CPU copy of a checkpoint_state dict."""
+    def cp(x):
+        if torch.is_tensor(x):
+            return x.detach().to("cpu", copy=True)
+        if isinstance(x, dict):
+            return {k: cp(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cp(v) for v in x]
+        return x
+    return cp(state)
+
+
+def _same_state(a, b) -> bool:
+    """Checkpoint states (model, optimizer state and count, epoch, step)
+    equal bit for bit."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_state(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return isinstance(b, list) and len(a) == len(b) and all(
+            _same_state(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _step_record(model, metrics, p0):
+    """(metrics, parameters after, parameters before, gradients) of one
+    step of `model`, full tensors on the card (FSDP's DTensors gathered);
+    the gradients as the optimizer left them (clipped)."""
+    from torch.distributed.tensor import DTensor
+
+    def full(t):
+        return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: full(v) for k, v in model.state_dict().items()}, p0,
+            {k: full(v.grad) for k, v in model.named_parameters() if v.grad is not None})
+
+
+def _step_distance(label, ref, got, gate, cfg) -> bool:
+    """Two steps from one state on the same batch and generator
+    (``_step_record``s). Bit for bit, or within phase 4's rounding gate:
+    every loss term and the gradient norm relatively, the watched
+    gradients (Hiera global attention, memory-attention projections) in
+    relative L2 as phase 4 holds them, and the parameter update in
+    relative L2 over the model."""
+    (rm, rp, p0, rg), (gm, gp, _, gg) = ref, got
+    exact = all(rm[k] == gm[k] for k in rm) and all(torch.equal(rp[k], gp[k]) for k in rp)
+    rel = max(abs(gm[k] - rm[k]) / max(abs(rm[k]), 1e-30) for k in rm)
+    num = sum(float((gp[k] - rp[k]).double().pow(2).sum()) for k in rp)
+    den = sum(float((rp[k] - p0[k]).double().pow(2).sum()) for k in rp)
+    upd = math.sqrt(num / max(den, 1e-300))
+    _, watched, missing = _grad_distance(rg, gg, cfg)
+    worst = max(watched, key=watched.get)
+    good = exact or (rel <= gate and upd <= gate and watched[worst] <= gate and not missing)
+    log(f"[trainer-checks] {label}: bit for bit {exact}; loss terms and grad_norm max "
+        f"relative difference {rel:.4g}; watched gradients ({len(watched)} tensors) "
+        f"relative L2 max {watched[worst]:.4g} ({worst}); parameter update relative L2 "
+        f"{upd:.4g}; gate {gate:.4g}; grad_norm {gm['grad_norm']:.6g} vs "
+        f"{rm['grad_norm']:.6g}" + (f"; missing {missing}" if missing else "")
+        + f" -> {'within' if good else 'outside'} the gate")
+    return good
+
+
+def phase_trainer(dev, results, work, gate, bare_ms):
+    """Phase 10. Returns (ok, launches of Trainer.run, launches of
+    validate_jf)."""
+    import torch.distributed as dist
+
+    from det_sam2_tpu_torch import convert
+    from det_sam2_tpu_torch.modeling.sam2_base import SAM2Model
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.track import SAM2Engine
+    from det_sam2_tpu_torch.training import checkpoint_utils as cu
+    from det_sam2_tpu_torch.training import launch
+    from det_sam2_tpu_torch.training.dataset import (
+        RandomUniformSampler,
+        VOSDataLoader,
+        affine_clip,
+        color_jitter_clip,
+        resize_clip,
+    )
+    from det_sam2_tpu_torch.training.recipes import mose_finetune_recipe
+    from det_sam2_tpu_torch.training.sam2_train import PromptSchedule
+    from det_sam2_tpu_torch.training.train_step import make_optimizer, make_train_step
+    from det_sam2_tpu_torch.training.trainer import Trainer, TrainerConf
+
+    gpu = gpu_line()
+    ok = True
+    t_start = time.time()
+    rank, world = launch.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    mesh = launch.make_global_mesh()
+    log(f"[trainer] ({gpu}) process group: rank {rank} of {world}, backend "
+        f"{dist.get_backend()}, mesh {mesh.mesh_dim_names} of {mesh.size()}")
+    try:
+        recipe = mose_finetune_recipe(total_steps=TRN_EPOCHS * TRN_STEPS)
+        cfg = recipe.model
+        sd = convert.init_params(SAM2Model(cfg), 0)
+        sd["sam_mask_decoder.pred_obj_score_head.layers.2.bias"].fill_(1.0)
+        eng = SAM2Engine(cfg, params=sd, dtype=torch.float32, device=dev)
+        del sd
+        ckdir = os.path.join(work, "trainer")
+        conf = TrainerConf(num_epochs=TRN_EPOCHS, steps_per_epoch=TRN_STEPS, log_every=1,
+                           checkpoint_dir=ckdir, prompt_sim=recipe.sample,
+                           clip_length=recipe.num_frames, seed=0)
+        trainer = Trainer(cfg, eng, recipe.optim, conf, mesh=mesh, loss_fn=recipe.loss)
+        data = MemoryVideos(TRN_VIDEOS, TRN_FRAMES, seed=20)
+        loader = VOSDataLoader(data, RandomUniformSampler(recipe.num_frames,
+                                                          recipe.max_num_objects),
+                               seed=1000 + rank, **recipe.loader_kwargs)
+        rec = {"loader_ms": [], "rows": [], "steps": [], "saves": [], "snap": None}
+
+        # instrument the step and the checkpoint save (timing, launches, the
+        # schedule, what was saved); the trainer calls them as it would
+        step_fn, save_fn = trainer._step, trainer.save_checkpoint
+
+        def timed_step(images, gt, gen, schedule=None):
+            before = dict(att.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step_fn(images, gt, gen, schedule=schedule)
+            torch.cuda.synchronize()
+            rec["steps"].append(dict(
+                ms=(time.perf_counter() - t0) * 1e3, schedule=schedule,
+                metrics={k: float(v) for k, v in m.items()},
+                launches={k: att.LAUNCHES[k] - before[k] for k in before}))
+            return m
+
+        def timed_save(epoch):
+            if epoch == 0:
+                rec["snap"] = _snapshot(trainer.checkpoint_state(epoch))
+            t0 = time.perf_counter()
+            save_fn(epoch)
+            rec["saves"].append(time.perf_counter() - t0)
+
+        trainer._step, trainer.save_checkpoint = timed_step, timed_save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.run(_TimedLoader(loader, rec))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(att.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        trainer._step, trainer.save_checkpoint = step_fn, save_fn
+
+        steps = rec["steps"]
+        want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        for st in steps:
+            for k, v in expected_launches(cfg, st["schedule"], recipe.num_frames).items():
+                want[k] += v
+        finite = all(math.isfinite(v) for st in steps for v in st["metrics"].values())
+        for i, st in enumerate(steps):
+            sch = st["schedule"]
+            log(f"[trainer] ({gpu}) step {i + 1}: {_kind(sch)}, init cond "
+                f"{list(sch.init_cond_frames)}, corrected {list(sch.frames_to_correct)} x "
+                f"{sch.num_correction_pt}; valid object rows {rec['rows'][i]} of "
+                f"{recipe.max_num_objects} | "
+                + " ".join(f"{k} {v:.6g}" for k, v in st["metrics"].items())
+                + f" | ms/step {st['ms']:.1f}; loader host ms {rec['loader_ms'][i]:.1f}; "
+                f"launches {st['launches']}")
+        step_ms = [st["ms"] for st in steps]
+        good = finite and len(steps) == TRN_EPOCHS * TRN_STEPS
+        log(f"[trainer] ({gpu}) Trainer.run over VOSDataLoader (the recipe's augmentations, "
+            f"{VP_HW[0]}x{VP_HW[1]} in-memory clips -> {cfg.image_size}^2, T="
+            f"{recipe.num_frames}, {recipe.max_num_objects} objects), DDP world {world} "
+            f"({dist.get_backend()}): {len(steps)} steps in {wall:.2f} s; ms/step median "
+            f"{float(np.median(step_ms)):.1f} (min {min(step_ms):.1f}, max {max(step_ms):.1f}) "
+            f"beside phase 4's bare step median {float(np.median(bare_ms)):.1f}; loader host "
+            f"ms per batch median {float(np.median(rec['loader_ms'])):.1f} (min "
+            f"{min(rec['loader_ms']):.1f}, max {max(rec['loader_ms']):.1f}); peak_mem "
+            f"{peak:.3f} GiB; every loss finite {finite} {'OK' if good else 'FAIL'}")
+        ok &= good
+        good = {k: launches[k] for k in want} == want
+        log(f"[trainer] ({gpu}) launches in Trainer.run {launches}, implied by the sampled "
+            f"schedules {want} {'OK' if good else 'FAIL'}")
+        ok &= good
+
+        # the loader's host work on one clip, by stage (8 frames at 720x1280)
+        import random as _random
+
+        clip = data.load_frames(data.videos[0], data.frame_names(data.videos[0])[:8])
+        t0 = time.perf_counter()
+        warped = affine_clip(clip, _random.Random(0))
+        t1 = time.perf_counter()
+        sized = resize_clip(warped, cfg.image_size)
+        t2 = time.perf_counter()
+        color_jitter_clip(sized, _random.Random(0), consistent=False)
+        t3 = time.perf_counter()
+        log(f"[trainer] ({gpu}) loader host work for 8 frames {VP_HW[0]}x{VP_HW[1]}: affine "
+            f"warp (frames + 3 masks) {1e3 * (t1 - t0):.1f} ms, resize to {cfg.image_size}^2 "
+            f"{1e3 * (t2 - t1):.1f} ms, per-frame jitter {1e3 * (t3 - t2):.1f} ms")
+        del clip, warped, sized
+
+        # checkpoints: bytes, seconds, a fresh trainer bit for bit
+        ck0, ck1 = (os.path.join(ckdir, f"ckpt_{e:04d}.pt") for e in (0, 1))
+        fresh_eng = SAM2Engine(cfg, dtype=torch.float32, device=dev, seed=1)
+        fresh = Trainer(cfg, fresh_eng, recipe.optim,
+                        dataclasses.replace(conf, checkpoint_dir=None), mesh=mesh,
+                        loss_fn=recipe.loss)
+        t0 = time.perf_counter()
+        fresh.load_checkpoint(ck0)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same0 = _same_state(fresh.checkpoint_state(0), rec["snap"])
+        fresh.load_checkpoint(ck1)
+        same1 = _same_state(fresh.checkpoint_state(1), trainer.checkpoint_state(1))
+        good = same0 and same1 and (fresh.global_step, fresh.start_epoch) == (
+            trainer.global_step, TRN_EPOCHS)
+        log(f"[trainer] ({gpu}) checkpoints ckpt_0000.pt {os.path.getsize(ck0) / 2 ** 20:.1f} "
+            f"MiB, save {rec['saves'][0]:.2f} / {rec['saves'][1]:.2f} s, load {load_s:.2f} s; "
+            f"a fresh trainer from ckpt_0000.pt equals what was saved bit for bit {same0}, "
+            f"from ckpt_0001.pt equals the live trainer {same1} "
+            f"{'OK' if good else 'FAIL'}")
+        ok &= good
+        rec.pop("snap")
+
+        # one step from the restored trainer vs one from the live trainer,
+        # on the last batch of the run
+        images, gt = rec.pop("last")
+        sch = steps[0]["schedule"]
+        outs = []
+        for t in (trainer, fresh):
+            p0 = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+            m = t._step(images, gt, t._generator(), schedule=sch)
+            outs.append(_step_record(t.model, m, p0))
+        ok &= _step_distance("restored trainer vs live trainer, one step at global step "
+                             f"{trainer.global_step}", outs[0], outs[1], gate, cfg)
+        state = {k: v.detach().clone() for k, v in trainer.model.state_dict().items()}
+        del outs, fresh, fresh_eng
+        torch.cuda.empty_cache()
+
+        # DDP vs unwrapped, FSDP vs DDP, frozen pattern, a planted K3 fault
+        box = PromptSchedule(init_cond_frames=(0,), use_pt_input=True,
+                             use_box_per_frame=(True,), num_correction_pt=0)
+
+        def one_step(label, mesh_=None, fsdp=False, freeze=None, profiled=False):
+            model = SAM2Model(cfg, attention_fn=att.flash_attention)
+            model.load_state_dict(state)
+            opt = make_optimizer(recipe.optim, model, cfg)
+            if freeze:
+                cu.freeze_wrapper(opt, model, freeze)
+            step = make_train_step(cfg, model, opt, loss_fn=recipe.loss, device=dev,
+                                   mesh=mesh_, fsdp=fsdp)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            with cu.check_parameter_frozen(model, freeze or ()):
+                if profiled:
+                    wall_ms, busy, m = profile_train_step(step, images, gt, gen, box,
+                                                          tag="trainer-profile")
+                    rec["profile"] = (wall_ms, busy)
+                else:
+                    m = step(images, gt, gen, schedule=box)
+            out = _step_record(model, m, state)
+            del model, opt, step
+            torch.cuda.empty_cache()
+            return out
+
+        plain_run = one_step("unwrapped")
+        ddp_run = one_step("DDP", mesh, profiled=True)
+        ok &= _step_distance(f"DDP world {world} vs unwrapped step", plain_run, ddp_run, gate,
+                             cfg)
+        fsdp_run = one_step("FSDP", mesh, fsdp=True)
+        ok &= _step_distance(f"FSDP (fully_shard) world {world} vs DDP step", ddp_run,
+                             fsdp_run, gate, cfg)
+        frozen_run = one_step("frozen", freeze=FREEZE)
+        names = cu.unix_pattern_to_parameter_names(FREEZE, state)
+        still = all(torch.equal(frozen_run[1][k], state[k]) for k in names)
+        moved = sum(not torch.equal(frozen_run[1][k], state[k]) for k in state if k not in names)
+        good = still and moved > 0 and math.isfinite(frozen_run[0]["core_loss"])
+        log(f"[trainer-checks] frozen pattern {list(FREEZE)} ({len(names)} tensors): frozen "
+            f"bit for bit {still}, {moved} other tensors moved, grad_norm "
+            f"{frozen_run[0]['grad_norm']:.6g} (the frozen gradients still count in the clip) "
+            f"{'OK' if good else 'FAIL'}")
+        ok &= good
+        del fsdp_run, frozen_run
+        orig = att.flash_bwd_dq
+        att.flash_bwd_dq = lambda *a, **kw: torch.zeros_like(orig(*a, **kw))
+        try:
+            bad_run = one_step("planted", mesh)
+        finally:
+            att.flash_bwd_dq = orig
+        caught = not _step_distance("planted 'K3a's dq zeroed' DDP step vs the DDP step "
+                                    "(must fail)", ddp_run, bad_run, gate, cfg)
+        log(f"[trainer-checks] planted fault 'K3a's dq zeroed' at the trainer's step: "
+            f"{'caught' if caught else 'MISSED'}")
+        ok &= caught
+        del plain_run, ddp_run, bad_run
+
+        # validation on the trained engine
+        jf_data = MemoryVideos(JF_VIDEOS, JF_FRAMES, seed=40)
+        vloader = VOSDataLoader(jf_data, RandomUniformSampler(recipe.num_frames,
+                                                              recipe.max_num_objects),
+                                image_size=cfg.image_size, batch_size=1, hflip_prob=0.0,
+                                color_jitter_prob=0.0, seed=5)
+        t0 = time.perf_counter()
+        val = trainer.validate(vloader, num_batches=2)
+        val_s = time.perf_counter() - t0
+        videos = [(jf_data.frames[v], {j + 1: np.stack([jf_data.mask(j, t)
+                                                        for t in range(JF_FRAMES)])
+                                       for j in range(3)}) for v in jf_data.videos]
+        watch = {}
+        unwatch = _watch_engine(eng, watch)
+        keep = {}
+        trainer.model.train()
+        torch.cuda.synchronize()
+        att.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with _tapped(eng, check=True, keep=keep) as (_, shapes, held):
+                jf = trainer.validate_jf(videos)
+            torch.cuda.synchronize()
+        finally:
+            unwatch()
+        jf_s = time.perf_counter() - t0
+        jf_launches = dict(att.LAUNCHES)
+        implied = _implied(watch)
+        grad_on = [g for _, g in watch["grad"] if g]
+        good = (jf_launches == implied and not grad_on and trainer.model.training
+                and 0.0 <= jf["val_JF"] <= 1.0 and math.isfinite(val["val_loss"]))
+        log(f"[trainer] ({gpu}) validate over {JF_VIDEOS} clips x {JF_FRAMES} frames "
+            f"{VP_HW[0]}x{VP_HW[1]} (2 batches, T={recipe.num_frames}): val_loss "
+            f"{val['val_loss']:.6g} val_iou {val['val_iou']:.4f} in {val_s:.2f} s; "
+            f"validate_jf (fp32 video predictor, banked) J {jf['val_J']:.4f} F "
+            f"{jf['val_F']:.4f} J&F {jf['val_JF']:.4f} in {jf_s:.2f} s; {watch['encodes']} "
+            f"encodes, {watch['conditioned']} memory-conditioned calls, K2 shapes "
+            f"{sorted(set(shapes))}; launches {jf_launches}, implied {implied}; grad on in "
+            f"{len(grad_on)} of {len(watch['grad'])} engine calls; training mode restored "
+            f"{trainer.model.training} {'OK' if good else 'FAIL'}")
+        ok &= good
+        ok &= _held_in_context("trainer validate_jf (fp32), kernels", held)
+        for key in sorted(k for k in keep if k[0] == "k2"):
+            ok &= _k2_rows(key[1], keep[key], results, gpu, path="validate_jf")
+        del keep, held
+        trainer.model.eval()
+        wall_ms, busy = rec["profile"]
+        log(f"[trainer] ({gpu}) one profiled DDP step: wall {wall_ms:.1f} ms, device busy "
+            f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall_ms):.3f}; phase 10 "
+            f"{time.time() - t_start:.1f} s")
+        # the training kernels' rows of phase 1, with this path's launches
+        for r in [r for r in results if r["path"] == "training"]:
+            results.append(dict(r, name=r["name"] + "@trainer", path="trainer"))
+        del trainer, eng
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return ok, launches, jf_launches
+
+
+# ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
@@ -3387,7 +3855,9 @@ def main() -> int:
     ok &= ok_train
     log(f"[time] phase 4 (training path) {time.time() - t_phase:.1f} s")
     t_phase = time.time()
-    ok &= phase_train_checks(dev, train_state)
+    ok_checks, train_gate = phase_train_checks(dev, train_state)
+    ok &= ok_checks
+    bare_ms = train_state[-1]
     del train_state
     torch.cuda.empty_cache()
     log(f"[time] phase 4 checks {time.time() - t_phase:.1f} s")
@@ -3420,9 +3890,15 @@ def main() -> int:
         del eng
         log(f"[time] phase 9 (batched streamer) {time.time() - t_phase:.1f} s "
             f"({gpu_line()})")
+        t_phase = time.time()
+        ok_trainer, trainer, validate_jf = phase_trainer(dev, results, work, train_gate,
+                                                         bare_ms)
+        ok &= ok_trainer
+        log(f"[time] phase 10 (training stack) {time.time() - t_phase:.1f} s "
+            f"({gpu_line()})")
     counts = {"serving": serving, "training": training, "predictor": predictor,
               "application": application, "image": image, "http": http,
-              "batched": batched}
+              "batched": batched, "trainer": trainer, "validate_jf": validate_jf}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
@@ -3430,7 +3906,9 @@ def main() -> int:
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                         ("predictor", serving_kernels), ("application", serving_kernels),
                         ("image", ("flash_fwd",)), ("http", serving_kernels),
-                        ("batched", serving_kernels)):
+                        ("batched", serving_kernels),
+                        ("trainer", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+                        ("validate_jf", serving_kernels)):
         for name in names:
             if counts[path][name] <= 0:
                 log(f"[main] kernel {name} was not launched by the {path} path")

@@ -3,17 +3,19 @@
 Counterpart of the JAX package's ``build.py``: a preset name, SAM 2.1
 HF-hub id or ``SAM2Config`` plus a checkpoint -> ``SAM2Engine`` /
 ``SAM2ImagePredictor`` / ``SAM2VideoPredictor``. Checkpoints: a SAM 2.1
-``.pt`` state dict (loaded strictly: the port keeps SAM 2.1's key layout)
-or the JAX package's ``save_params_npz`` file (read with numpy). Options the
-port does not have yet raise instead of doing something else: reference
-YAML configs, the JAX trainer's orbax directories and the int8 trunk (each
-a ROADMAP item).
+``.pt`` state dict (loaded strictly: the port keeps SAM 2.1's key layout),
+the port trainer's checkpoint file or directory, or the JAX package's
+``save_params_npz`` file (read with numpy). Options the port does not have
+yet raise instead of doing something else: reference YAML configs and the
+int8 trunk (each a ROADMAP item). The JAX trainer's orbax directories need
+JAX to read and are refused with a pointer to ``save_params_npz``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Dict, Optional
 
 import numpy as np
@@ -80,15 +82,22 @@ def load_params_npz(path: str) -> Dict:
 
 
 def _load_params(checkpoint: Optional[str]):
-    """A state dict in the SAM 2.1 layout, or None (seeded random init)."""
+    """A state dict in the SAM 2.1 layout, or None (seeded random init).
+    checkpoint: a SAM 2.1 ``.pt``, the port trainer's ``ckpt_NNNN.pt`` or
+    its checkpoint directory (the newest ``ckpt_*.pt`` there), or a JAX
+    ``save_params_npz`` file."""
     if checkpoint is None:
         return None
     if os.path.isdir(checkpoint):
-        raise NotImplementedError(
-            f"{checkpoint} is a directory (an orbax checkpoint of the JAX "
-            "trainer), which the port does not read yet (ROADMAP Queue 1 item "
-            "8: checkpoint_utils); save it with save_params_npz instead"
-        )
+        names = sorted(n for n in os.listdir(checkpoint)
+                       if re.fullmatch(r"ckpt_\d+\.pt", n))
+        if not names:
+            raise NotImplementedError(
+                f"{checkpoint} holds no ckpt_NNNN.pt of the port's trainer; an "
+                "orbax checkpoint directory of the JAX trainer needs JAX to "
+                "read: save its params with the JAX package's save_params_npz "
+                "and pass that .npz file")
+        checkpoint = os.path.join(checkpoint, names[-1])
     if checkpoint.endswith(".npz"):
         return convert.from_jax_params(load_params_npz(checkpoint))
     sd = torch.load(checkpoint, map_location="cpu", weights_only=True)

@@ -6,7 +6,7 @@ Counterpart of the JAX package's ``training/loss_fns.py`` (SAM 2's
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -89,13 +89,17 @@ class MultiStepMultiMasksAndIous:
         self.focal_gamma_obj_score = focal_gamma_obj_score
         self.focal_alpha_obj_score = focal_alpha_obj_score
 
-    def __call__(self, outs_batch: List[Dict], targets_batch: torch.Tensor):
+    def __call__(self, outs_batch: List[Dict], targets_batch: torch.Tensor,
+                 num_objects: Optional[torch.Tensor] = None):
         """outs_batch: per-frame dicts of ``forward_training``; targets_batch
         [T, N, H, W]. Object rows that are empty in every frame are padding:
-        they are neither supervised nor counted in num_objects."""
+        they are neither supervised nor counted in num_objects.
+        num_objects: the normaliser, when it is not this batch's own count
+        (data parallelism: the global count over the ranks / world size)."""
         assert len(outs_batch) == targets_batch.shape[0]
         row_valid = (targets_batch > 0).any(3).any(2).any(0)  # [N]
-        num_objects = row_valid.sum().float().clamp_min(1.0)
+        if num_objects is None:
+            num_objects = row_valid.sum().float().clamp_min(1.0)
         zero = targets_batch.new_zeros(())
         losses = {"loss_mask": zero, "loss_dice": zero, "loss_iou": zero,
                   "loss_class": zero}

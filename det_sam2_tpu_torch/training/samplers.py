@@ -4,14 +4,16 @@ Counterpart of the JAX package's ``training/samplers.py`` (and its
 ``mask_to_box``, from ``training/sam2_train.py``). Each sampler draws its
 uniform noise from an explicit ``torch.Generator`` and hands it to an inner
 form that takes the noise as an argument, so a test can give both packages
-the same numbers. The host-side cv2 "center" click sampler and
-``get_next_point`` are not ported: the train step does not use them.
+the same numbers. The host "center" click sampler, which the JAX package
+computes with cv2's precise distance transform, takes scipy's exact
+Euclidean transform here.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from det_sam2_tpu_torch.modeling.layers import uniform
@@ -98,3 +100,61 @@ def sample_random_points_from_errors(generator: torch.Generator,
     b, h, w = gt_masks.shape
     u = uniform((b, num_pt, h, w, 2), generator, gt_masks.device)
     return error_points_from_uniform(u, gt_masks, pred_masks)
+
+
+def _edt32(mask: np.ndarray) -> np.ndarray:
+    """cv2.distanceTransform(mask, DIST_L2, 0), the precise transform: each
+    pixel's Euclidean distance to the nearest zero pixel, the correctly
+    rounded float32 square root of the exact squared distance. cv2's own
+    (its IPP path) is one float32 ulp off at a few pixels of some masks; the
+    order of distinct distances, and so the sampled clicks, are the same."""
+    from scipy import ndimage
+
+    if not mask.any():
+        return np.zeros(mask.shape, np.float32)
+    _, (iy, ix) = ndimage.distance_transform_edt(mask, return_indices=True)
+    yy, xx = np.indices(mask.shape)
+    d2 = (yy - iy) ** 2 + (xx - ix) ** 2
+    return np.sqrt(d2.astype(np.float32))
+
+
+def sample_one_point_from_error_center_np(
+    gt_masks: np.ndarray, pred_masks: Optional[np.ndarray], padding: bool = True
+) -> Tuple[np.ndarray, np.ndarray]:
+    """RITM centre-click sampling (host numpy): one click a row at the pixel
+    deepest inside the larger error region, positive for a false negative
+    -> (points [B, 1, 2] fp32 xy, labels [B, 1] int32). padding: the image
+    border counts as outside the error regions (sam2_utils.py:255-311)."""
+    gt = np.asarray(gt_masks) > 0
+    pred = np.zeros_like(gt) if pred_masks is None else np.asarray(pred_masks) > 0
+    b, h, w = gt.shape
+    fp = ~gt & pred
+    fn = gt & ~pred
+    points = np.zeros((b, 1, 2), np.float32)
+    labels = np.ones((b, 1), np.int32)
+    for i in range(b):
+        fn_m, fp_m = fn[i], fp[i]
+        if padding:
+            fn_m = np.pad(fn_m, 1)
+            fp_m = np.pad(fp_m, 1)
+        fn_dt = _edt32(fn_m)
+        fp_dt = _edt32(fp_m)
+        if padding:
+            fn_dt = fn_dt[1:-1, 1:-1]
+            fp_dt = fp_dt[1:-1, 1:-1]
+        fn_idx = int(np.argmax(fn_dt))
+        fp_idx = int(np.argmax(fp_dt))
+        is_pos = fn_dt.reshape(-1)[fn_idx] > fp_dt.reshape(-1)[fp_idx]
+        idx = fn_idx if is_pos else fp_idx
+        points[i, 0] = (idx % w, idx // w)
+        labels[i, 0] = int(is_pos)
+    return points, labels
+
+
+def get_next_point(generator: torch.Generator, gt_masks: torch.Tensor,
+                   pred_masks: Optional[torch.Tensor], method: str = "uniform"):
+    """The next correction click (sam2_utils.py:313-321); the in-graph
+    sampler is the uniform one, as in the JAX package."""
+    if method == "uniform":
+        return sample_random_points_from_errors(generator, gt_masks, pred_masks)
+    raise ValueError(f"unknown in-graph sampling method {method}")

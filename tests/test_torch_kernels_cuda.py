@@ -411,3 +411,46 @@ def test_engine_encodes_the_same_bits_on_any_thread_on_cuda(dev):
         t.start()
         t.join()
         assert all(torch.equal(a, b) for a, b in zip(here, box["f"]))
+
+
+@pytest.mark.cuda
+def test_trainer_checkpoint_round_trip_on_cuda(dev, tmp_path):
+    """A trainer on the card (tiny config, fp32, the kernels on its path)
+    saves ckpt_0000.pt; a fresh trainer loaded from it holds the parameters
+    and the optimizer state bit for bit, and its next step equals the live
+    trainer's on the same batch and step seed."""
+    from det_sam2_tpu_torch.configs import tiny_test_config
+    from det_sam2_tpu_torch.track import SAM2Engine
+    from det_sam2_tpu_torch.training import dataset as pd
+    from det_sam2_tpu_torch.training.train_step import OptimConf
+    from det_sam2_tpu_torch.training.trainer import Trainer, TrainerConf, kind_schedule
+
+    def trainer(seed, ckdir):
+        eng = SAM2Engine(tiny_test_config(), device=dev, seed=seed)
+        return Trainer(eng.cfg, eng, OptimConf(base_lr=1e-4, total_steps=4),
+                       TrainerConf(num_epochs=1, steps_per_epoch=2, log_every=1,
+                                   checkpoint_dir=str(ckdir),
+                                   prompt_kind_probs={"box": 1.0}, num_correction_steps=1))
+
+    def loader(seed):
+        return pd.VOSDataLoader(pd.SyntheticRawDataset(num_videos=2, num_frames=4),
+                                pd.RandomUniformSampler(num_frames=3), image_size=128,
+                                batch_size=2, seed=seed)
+
+    live = trainer(0, tmp_path / "a")
+    live.run(loader(0))
+    fresh = trainer(7, tmp_path / "b")
+    fresh.load_checkpoint(str(tmp_path / "a" / "ckpt_0000.pt"))
+    for (n, a), b in zip(live.model.state_dict().items(), fresh.model.state_dict().values()):
+        assert a.is_cuda and torch.equal(a, b), n
+    sa, sb = live.optimizer.adamw.state_dict(), fresh.optimizer.adamw.state_dict()
+    for i, st in sa["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, sb["state"][i][k]), (i, k)
+    images, gt = next(iter(loader(3).batches(1)))
+    sch = kind_schedule("box", 1)
+    got = [t._step(images, gt, t._generator(), schedule=sch) for t in (live, fresh)]
+    for k in got[0]:
+        torch.testing.assert_close(got[1][k], got[0][k], rtol=1e-5, atol=0, msg=k)
+    for (n, a), b in zip(live.model.state_dict().items(), fresh.model.state_dict().values()):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7, msg=n)
