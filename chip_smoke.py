@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py            # ten phases, one card
+    python3 chip_smoke.py            # eleven phases, one card
 
 Phase 1 (kernels): builds every CUDA kernel of the two paths from
 det_sam2_tpu_torch/csrc (nvcc, in parallel) and holds each one against its
@@ -120,6 +120,32 @@ Prints ms per step beside phase 4's bare step, the loader's host ms per
 batch and per stage, peak memory, checkpoint bytes and save / load
 seconds, a profiled step's device busy time and idle share, J&F, and K2 in
 fp32 at validate_jf's shape against its plain version.
+Phase 11 (the last modules), hiera-S 1024^2 bf16 on phase 5's seeded .pt:
+(a) the W8A8 int8 trunk, build_sam2_engine(quantize_int8=True): every int8
+product of an encode (torch._int_mm) equal at its shape on the card and on
+the CPU, 64 an encode, each timed; encode_image median ms int8 against
+bf16; features against the bf16 engine's (relative L2 error < 0.12, cosine
+> 0.99) and box masks by IoU (> 0.99) on the input of that JAX bar
+(tests/test_quant.py's float image and box, scaled), the JAX package's
+bars; on phase 2's uint8 frame, where random weights' mask logits sit near
+0, the IoU is printed beside a rounding baseline (bf16 vs fp32 plain); 30
+stream_steps beside a bf16
+session, launches a frame as phase 2's; every K1 / K2 call of a few int8
+frames held in context; K1 at the int8 trunk's global blocks. (b)
+build_sam2_video_predictor from a reference-shaped hiera-S YAML written to a
+temporary directory: config equal to the preset, masks of an 8-frame
+session bit for bit equal to the preset-built predictor's, every K2 call
+held in context. (c, d) the unsharded single process, then world 1 over NCCL
+(launch.init_distributed) bit for bit equal to it, then two gloo processes
+on the one card (NCCL refuses two ranks on one GPU), each: (c) 2 of 4
+objects on a bank cut by shard_bank (the gather path), prompt, cond write,
+8 track_steps, outputs joined by gather_objects within phase 3's gate of the
+single process, every gather-mode cross-attention K1 call held in context,
+K1 launches as implied; (d) make_spatial_encode of a frame within phase 7's
+feature gate of encode_image, the same on both ranks, every global-block K1
+call (this rank's query rows, all keys) held in context, a track_step on the
+features within phase 3's gate. ms of (c) and (d) are printed as facts:
+both ranks share one card.
 
 Prints the card's name and power limit, one JSON line with the kernel table,
 and last the device line. Exits non-zero, printing no result, when there is
@@ -1583,7 +1609,7 @@ def _k2_rows(key, args, results, gpu, path="predictor") -> bool:
     return good
 
 
-def _sdpa_ms(q, k, v, iters):
+def _sdpa_ms(q, k, v, iters, mask=None):
     """ms of one F.scaled_dot_product_attention call with every backend
     allowed (a built engine turns the cuDNN one off for the process): the
     library's own pick."""
@@ -1591,31 +1617,40 @@ def _sdpa_ms(q, k, v, iters):
 
     with sdpa_kernel([SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
                       SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH]):
-        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters)
+        return time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                       iters)
 
 
 def _k1_row(args, results, gpu, label, path="predictor") -> bool:
-    """K1 at a shape a path gave it (no bias), on that call's inputs: held,
-    timed against plain and sdpa, bounded; one kernel-table row."""
+    """K1 at a shape a path gave it, on that call's inputs (q, k, v[, bias
+    [BH, Nk]]): held, timed against plain and sdpa, bounded over the live
+    keys as in phase 1; one kernel-table row."""
     from det_sam2_tpu_torch.ops import attention as att
 
-    q, k, v = args
+    q, k, v = args[:3]
+    bias = args[3] if len(args) > 3 else None
     dtype = q.dtype
-    out, lse = att.flash_attention_fwd(q, k, v)
-    h = _held(out, att.flash_attention_ref(q, k, v)[0], dtype)
+    out, lse = att.flash_attention_fwd(q, k, v, bias)
+    h = _held(out, att.flash_attention_ref(q, k, v, bias)[0], dtype)
     bh, nq, d = q.shape
-    flops = 2.0 * nq * bh * k.shape[1] * (d + v.shape[-1])
-    bnd, by = bound_ms(flops, nbytes(q, k, v, out, lse), dtype)
-    ms = time_ms(lambda: att.flash_attention_fwd(q, k, v), 20)
-    plain = time_ms(lambda: att.flash_attention_ref(q, k, v), 3, 1)
-    lib = _sdpa_ms(q[:, None], k[:, None], v[:, None], 20)
-    log(f"[{path}] ({gpu}) K1 {label} q{list(q.shape)} {str(dtype)[6:]}: "
+    dv = v.shape[-1]
+    n_live = bh * k.shape[1] if bias is None else int((bias > -1e29).sum())
+    flops = 2.0 * nq * n_live * (d + dv)
+    bnd, by = bound_ms(flops, nbytes(q, bias, out, lse) + n_live * (d + dv) * k.element_size(),
+                       dtype)
+    ms = time_ms(lambda: att.flash_attention_fwd(q, k, v, bias), 20)
+    plain = time_ms(lambda: att.flash_attention_ref(q, k, v, bias), 3, 1)
+    lib = _sdpa_ms(q[:, None], k[:, None], v[:, None], 20,
+                   None if bias is None else bias[:, None, None, :])
+    log(f"[{path}] ({gpu}) K1 {label} q{list(q.shape)} k{list(k.shape)} "
+        f"bias={'yes' if bias is not None else 'no'} {str(dtype)[6:]}: "
         f"{_fmt(h)} ms {ms:.4f} plain_ms {plain:.4f} sdpa_ms {lib:.4f} bound_ms {bnd:.4f} "
         f"({by}) {'OK' if h['good'] else 'FAIL'}")
     results.append(dict(
         name=f"flash_fwd:{label}", route="cuda", source=K1_SRC,
         replaces=K1_TPU, kernel="flash_fwd", path=path, dtype=str(dtype)[6:],
-        shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape), bias=None),
+        shape=dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                   bias=None if bias is None else list(bias.shape)),
         max_abs_err=h["err"], ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
         bound_scheme="bf16 tensor cores: FLOPs / 989 TFLOP/s", library_ms=lib))
     return h["good"]
@@ -3773,6 +3808,552 @@ def phase_trainer(dev, results, work, gate, bare_ms):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the int8 trunk, a predictor built from a YAML, object- and
+# spatially-sharded inference
+# ---------------------------------------------------------------------------
+
+# the JAX package's bars for the int8 trunk against the fp trunk
+# (tests/test_quant.py): features' relative L2 error and cosine, box masks' IoU
+INT8_REL_ERR, INT8_COSINE, INT8_IOU = 0.12, 0.99, 0.99
+INT8_STEPS = 30  # stream_steps of each phase-11 session (phase 2's N_STREAM)
+ENCODE_ITERS = 10  # encode_image calls timed for the median
+YAML_FRAMES = 8  # frames of the YAML-built predictor's session
+SHARD_WORLD = 2  # gloo ranks on the one card
+SHARD_OBJECTS = 4  # 2 a rank
+SHARD_STEPS = 8  # track_steps of the sharded session
+SHARD_BOXES = BOXES + [[[100.0, 620.0], [380.0, 900.0]], [[700.0, 640.0], [980.0, 990.0]]]
+# K1 launches a rank makes in the sharded object session (gather path, so no
+# K2): 1 + SHARD_STEPS encodes x 3 Hiera global + SHARD_STEPS conditioned
+# frames x 4 layers x (self + gather cross-attention)
+SHARD_K1 = (1 + SHARD_STEPS) * ENCODE_K1 + SHARD_STEPS * 4 * 2
+
+
+def jax_bar_image(size):
+    """tests/test_quant.py's image at `size`: N(90, 40) clipped to [0, 255],
+    float (taken as normalised)."""
+    rng = np.random.default_rng(3)
+    return (rng.standard_normal((1, size, size, 3)) * 40 + 90).clip(0, 255).astype(np.float32)
+
+
+def jax_bar_box(size):
+    """tests/test_quant.py's box, [[20, 25], [90, 100]] at 128, scaled."""
+    s = size / 128.0
+    return [[[20.0 * s, 25.0 * s], [90.0 * s, 100.0 * s]]]
+
+
+def _box_masks(eng, img, boxes):
+    from det_sam2_tpu_torch.state import init_bank
+
+    dev = eng.device
+    o = len(boxes)
+    bank = init_bank(eng.cfg, num_objects=o, dtype=eng.dtype, attend_cond_tiles=1, device=dev)
+    out = eng.prompt_step(eng.encode_image(img), bank, 0, NUM_FRAMES,
+                          torch.tensor(boxes, device=dev),
+                          torch.tensor([[2, 3]] * o, device=dev), is_init=True)
+    return out["pred_masks"] > 0
+
+
+def _iou(a, b) -> float:
+    union = float((a | b).sum())
+    return float((a & b).sum()) / union if union else 1.0
+
+
+def _int8_shapes_exact(eng, frame, gpu) -> bool:
+    """One encode's int8 products recorded by shape; each shape's product of
+    seeded int8 operands on the card equals the CPU's bit for bit."""
+    from det_sam2_tpu_torch.ops import quant
+
+    shapes, real = [], quant.int8_mm
+
+    def record(x_q, w_q):
+        shapes.append((x_q.shape[0], x_q.shape[1], w_q.shape[0]))
+        return real(x_q, w_q)
+
+    quant.int8_mm = record
+    try:
+        eng.encode_image(frame)
+    finally:
+        quant.int8_mm = real
+    g = torch.Generator().manual_seed(0)
+    bad, ms = [], {}
+    for m, k, n in sorted(set(shapes)):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        a[0], w[0] = 127, -127
+        ad, wd = a.cuda(), w.cuda()
+        if not torch.equal(real(ad, wd).cpu(), real(a, w)):
+            bad.append((m, k, n))
+        ms[m, k, n] = time_ms(lambda: real(ad, wd), 20)
+    want = 4 * len(eng.model.image_encoder.trunk.blocks)  # qkv, attn out, 2 MLP; proj fp
+    good = not bad and len(shapes) == want
+    log(f"[int8] ({gpu}) one encode: {len(shapes)} int8 products (expected {want}: qkv, "
+        f"attention out, 2 MLP layers a block; the dim-change proj kept fp), "
+        f"{len(set(shapes))} shapes [M, K] x [K, N] {sorted(set(shapes))}; card == CPU bit "
+        f"for bit at every shape: {not bad} {bad or ''} {'OK' if good else 'FAIL'}")
+    log(f"[int8] ({gpu}) torch._int_mm alone: {min(ms.values()):.4f}-{max(ms.values()):.4f} "
+        f"ms a product, {sum(ms[sh] for sh in shapes):.3f} ms for an encode's {len(shapes)}")
+    return good
+
+
+def _median_encode_ms(eng, frame) -> float:
+    for _ in range(2):
+        eng.encode_image(frame)
+    return float(np.median([time_ms(lambda: eng.encode_image(frame), 1, 0)
+                            for _ in range(ENCODE_ITERS)]))
+
+
+def phase_int8(dev, results, ckpt):
+    """Phase 11 (a). Returns (ok, launches of the int8 stream session)."""
+    from det_sam2_tpu_torch.build import build_sam2_engine
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.ops import quant
+
+    gpu = gpu_line()
+    cfg = sam2_1_hiera_s()
+    fp = build_sam2_engine(cfg, ckpt)
+    q8 = build_sam2_engine(cfg, ckpt, quantize_int8=True)
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randint(0, 256, (INT8_STEPS + 1, cfg.image_size, cfg.image_size, 3),
+                           generator=g, device=dev, dtype=torch.uint8)
+    ok = _int8_shapes_exact(q8, frames[0:1], gpu)
+    ms = {name: _median_encode_ms(e, frames[0:1]) for name, e in (("bf16", fp), ("int8", q8))}
+    log(f"[int8] ({gpu}) encode_image hiera-S {cfg.image_size}^2, median of "
+        f"{ENCODE_ITERS}: int8 trunk {ms['int8']:.3f} ms, bf16 {ms['bf16']:.3f} ms")
+
+    feats = {name: e.encode_image(frames[0:1]) for name, e in (("bf16", fp), ("int8", q8))}
+    rel, cos = [], []
+    for a, b in zip(feats["bf16"], feats["int8"]):
+        a, b = a.double().flatten(), b.double().flatten()
+        rel.append(float((b - a).norm() / a.norm()))
+        cos.append(float(a @ b / (a.norm() * b.norm())))
+    good = max(rel) < INT8_REL_ERR and min(cos) > INT8_COSINE
+    log(f"[int8] ({gpu}) features int8 vs bf16 (s0, s1, top): relative L2 error "
+        f"{[round(r, 5) for r in rel]} (< {INT8_REL_ERR}), cosine "
+        f"{[round(c, 6) for c in cos]} (> {INT8_COSINE}) {'OK' if good else 'FAIL'}")
+    ok &= good
+    # box masks by IoU against bf16, gated on the JAX package's own input for
+    # that bar; on the uint8 noise frame random weights' mask logits sit so
+    # near 0 that two correct runs differing only in rounding (bf16, fp32
+    # plain) fall below it as well, so there it is printed beside that
+    # baseline
+    f32 = build_sam2_engine(dataclasses.replace(cfg, use_approx_gelu=True), ckpt,
+                            dtype=torch.float32, plain_kernels=True)
+    harness = torch.as_tensor(jax_bar_image(cfg.image_size), device=dev)
+    for label, img, boxes, gated in (
+            ("the JAX bar's input (a float image N(90, 40) clipped to [0, 255], one box)",
+             harness, jax_bar_box(cfg.image_size), True),
+            ("phase 2's uint8 frame, 2 boxes", frames[0:1], BOXES, False)):
+        m = {name: _box_masks(e, img, boxes) for name, e in (("bf16", fp), ("int8", q8),
+                                                              ("fp32", f32))}
+        iou, base = _iou(m["bf16"], m["int8"]), _iou(m["bf16"], m["fp32"])
+        good = iou > INT8_IOU if gated else True
+        log(f"[int8] ({gpu}) box masks on {label}: IoU int8 vs bf16 {iou:.5f}"
+            f"{f' (> {INT8_IOU})' if gated else ' (reported)'}; rounding baseline, bf16 vs "
+            f"fp32 plain {base:.5f} {'OK' if good else 'FAIL'}")
+        ok &= good
+    del f32
+
+    # the 30-frame stream sessions, bf16 then int8; the int8 session's counts
+    timings = {"bf16": [], "int8": []}
+    run_session(fp, frames, True, INT8_STEPS, timings["bf16"])
+    init_counts = {}
+    att.reset_launch_counts()
+    quant.reset_counts()
+    outs, _ = run_session(q8, frames, True, INT8_STEPS, timings["int8"],
+                          after_init=lambda: init_counts.update(att.LAUNCHES))
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    products = quant.INT8_PRODUCTS["int8_mm"]
+    ok &= check_outputs(outs, cfg)
+    per_frame = {k: (launches[k] - init_counts[k]) / INT8_STEPS for k in launches}
+    step_ms = {k: float(np.mean(v[N_WARM:])) for k, v in timings.items()}
+    want = {"flash_fwd": 7.0, "flash_banked_keys": 4.0, "flash_banked_fwd": 4.0,
+            "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    good = per_frame == want and products == 64 * (INT8_STEPS + 1)
+    log(f"[int8] ({gpu}) {INT8_STEPS} stream_steps, 2 objects, banked: int8 trunk "
+        f"{step_ms['int8']:.3f} ms/frame, bf16 {step_ms['bf16']:.3f} ms/frame (mean of steps "
+        f"{N_WARM + 1}..{INT8_STEPS}); launches {launches}, per stream_step {per_frame} "
+        f"(expected {want}); int8 products {products} (64 an encode) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+
+    # every K1 / K2 call of a few int8 frames held in context
+    keep = {}
+    with _tapped(q8, check=True, check_self=True) as (_, _, held), \
+            _k1_tapped(q8, check=True, keep=keep) as held_g:
+        run_session(q8, frames, True, N_CHECK)
+    ok &= _held_in_context("int8 trunk, memory attention (K2, K1 self)", held,
+                           "memory-attention calls")
+    ok &= _held_in_context("int8 trunk, Hiera global attention (K1)", held_g,
+                           "Hiera global-attention calls")
+    ok &= _k1_row(keep[("k1_hiera", 1)], results, gpu, "hiera_global_int8", path="int8_trunk")
+    del fp, q8, frames, feats
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def _yaml_session(vp, video):
+    """Boxes for two objects on frame 0, then propagation: the masks."""
+    s = vp.init_state(video)
+    vp.add_new_points_or_box(s, 0, 1, box=_rect(0, 0))
+    vp.add_new_points_or_box(s, 0, 2, box=_rect(1, 0))
+    return [(f, np.asarray(m)) for f, _, m in vp.propagate_in_video(s)]
+
+
+def phase_yaml(dev, results, ckpt, work):
+    """Phase 11 (b). Returns (ok, launches of the YAML-built session)."""
+    import yaml
+
+    from det_sam2_tpu_torch import config_yaml
+    from det_sam2_tpu_torch.build import build_sam2_video_predictor
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+
+    gpu = gpu_line()
+    cfg = sam2_1_hiera_s()
+    path = os.path.join(work, "sam2.1_hiera_s.yaml")
+    with open(path, "w") as f:
+        f.write("# @package _global_\n\n" + yaml.safe_dump(
+            {"model": config_yaml.reference_model_tree(cfg)}, sort_keys=False))
+    video = synthetic_video(YAML_FRAMES, 2)
+    want = _yaml_session(build_sam2_video_predictor(cfg, ckpt), video)
+    vp = build_sam2_video_predictor(path, ckpt)
+    keep = {}
+    att.reset_launch_counts()
+    with _tapped(vp.engine, check=True, keep=keep) as (_, _, held):
+        got = _yaml_session(vp, video)
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    same = (vp.engine.cfg == cfg and [f for f, _ in got] == [f for f, _ in want]
+            and all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, want)))
+    log(f"[yaml] ({gpu}) build_sam2_video_predictor({os.path.basename(path)}, seeded .pt): "
+        f"config == the hiera_s preset: {vp.engine.cfg == cfg}; {len(got)} frames of masks "
+        f"[2, 1, {VP_HW[0]}, {VP_HW[1]}] bit for bit equal to the preset-built predictor's: "
+        f"{same}; launches {launches} {'OK' if same else 'FAIL'}")
+    ok = same and launches["flash_banked_fwd"] > 0
+    ok &= _held_in_context("yaml-built predictor", held)
+    for key in sorted(k for k in keep if k[0] == "k2")[-1:]:
+        ok &= _k2_rows(key[1], keep[key], results, gpu, path="yaml")
+    del vp
+    torch.cuda.empty_cache()
+    return ok, launches
+
+
+def shard_frames(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    return torch.randint(0, 256, (SHARD_STEPS + 2, 1024, 1024, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+
+
+def shard_object_session(eng, frames, mesh=None, timings=None):
+    """SHARD_OBJECTS objects in gather mode: box prompts on frame 0 (with a
+    mesh, this rank's rows on a bank cut by shard_bank), the cond write,
+    SHARD_STEPS track_steps on encoded frames. Returns (outputs of the
+    prompt and every step, joined over the ranks, in fp32; the bank)."""
+    from det_sam2_tpu_torch.parallel import inference_sharding as ish
+    from det_sam2_tpu_torch.state import init_bank
+
+    dev = frames.device
+    bank = init_bank(eng.cfg, SHARD_OBJECTS, dtype=eng.dtype, attend_cond_tiles=1, device=dev)
+    rows = slice(None)
+    if mesh is not None:
+        bank = ish.shard_bank(mesh, bank)
+        rows = ish.object_rows(mesh, SHARD_OBJECTS)
+
+    def joined(o):
+        o = o if mesh is None else ish.gather_objects(mesh, o)
+        return {k: v.float() for k, v in o.items()}
+
+    labels = torch.tensor([[2, 3]] * SHARD_OBJECTS, device=dev)
+    feats = eng.encode_image(frames[0:1])
+    out = eng.prompt_step(feats, bank, 0, NUM_FRAMES, torch.tensor(SHARD_BOXES, device=dev)[rows],
+                          labels[rows], is_init=True)
+    bank = eng.encode_cond_memory(feats, bank, 0, out["pred_masks"],
+                                  out["object_score_logits"], out["obj_ptr"])
+    outs = [joined(out)]
+    for t in range(1, SHARD_STEPS + 1):
+        _sync(dev)
+        t0 = time.perf_counter()
+        bank, o = eng.track_step(eng.encode_image(frames[t:t + 1]), bank, t, NUM_FRAMES)
+        _sync(dev)
+        if timings is not None:
+            timings.append((time.perf_counter() - t0) * 1e3)
+        outs.append(joined(o))
+    return outs, bank
+
+
+@contextlib.contextmanager
+def _attn_tap(mods, held, keep, key):
+    """Route mods' attention_fn calls through a tap holding each output
+    against the plain version on the same inputs; keep[key] gets the first
+    call's inputs flattened to K1's [B * heads, N, D] (and bias [B * heads,
+    Nk]), on the host."""
+    from det_sam2_tpu_torch.modeling.layers import sdpa
+
+    saved = [m.attention_fn for m in mods]
+
+    def tap(fn):
+        def attend(q, k, v, bias=None):
+            o = fn(q, k, v, bias=bias)
+            held.append(_held(o, sdpa(q, k, v, bias), q.dtype))
+            if key not in keep:
+                b, h = q.shape[:2]
+                flat = [t.reshape(b * h, t.shape[2], -1).cpu() for t in (q, k, v)]
+                if bias is not None:
+                    flat.append(bias[:, 0, 0, :].float()[:, None].expand(
+                        b, h, k.shape[2]).reshape(b * h, -1).cpu())
+                keep[key] = tuple(flat)
+            return o
+        return attend
+
+    for m, fn in zip(mods, saved):
+        m.attention_fn = tap(fn)
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.attention_fn = fn
+
+
+def _summary(held) -> dict:
+    worst = max(held, key=lambda h: max(h["max_ulps"], h["mean_eps"]))
+    return {"n": len(held), "good": all(h["good"] for h in held), "worst": worst}
+
+
+def shard_worker(rank: int, world: int, port: int, ckpt: str, out: str) -> int:
+    """One gloo rank of phase 11 (c, d) on card 0 (``python3 -c`` in a
+    process of its own). Saves its results to out/rank<rank>.pt."""
+    import torch.distributed as dist
+
+    from det_sam2_tpu_torch.build import build_sam2_engine
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.parallel.mesh import make_mesh
+    from det_sam2_tpu_torch.parallel.spatial import make_spatial_encode
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    x = torch.full((2, 3), float(rank), device=dev)
+    probe = {}
+    for name, fn in (("all_gather", lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x)),
+                     ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+                     ("all_reduce", lambda: dist.all_reduce(x.clone()))):
+        try:
+            fn()
+            probe[name] = "accepts CUDA tensors"
+        except RuntimeError as e:
+            probe[name] = f"refuses CUDA tensors ({str(e)[:80]})"
+    eng = build_sam2_engine(sam2_1_hiera_s(), ckpt)
+    frames = shard_frames(dev)
+    res = {"probe": probe}
+
+    # (c) objects: 2 of the 4 a rank, every gather-mode cross-attention K1
+    # call held against its plain version
+    mesh = make_mesh("cpu", axis_names=("objects",))
+    held, keep, timings = [], {}, []
+    cross = [layer.cross_attn_image for layer in eng.model.memory_attention.layers]
+    shard_object_session(eng, frames, mesh)  # warm-up
+    dist.barrier()
+    att.reset_launch_counts()
+    with _attn_tap(cross, held, keep, "cross"):
+        outs, bank = shard_object_session(eng, frames, mesh, timings)
+    torch.cuda.synchronize()
+    res["objects"] = {"outs": [{k: v.cpu() for k, v in o.items()} for o in outs],
+                      "bank_objects": bank.num_objects, "bank_mem_k": bank.mem_k is not None,
+                      "launches": dict(att.LAUNCHES), "held": _summary(held),
+                      "step_ms": timings, "keep": keep["cross"]}
+
+    # (d) spatial: the frame's rows over the ranks; the global blocks' K1
+    # calls (this rank's queries, every key) held against their plain version
+    smesh = make_mesh("cpu", axis_names=("spatial",))
+    encode = make_spatial_encode(eng, smesh)
+    frame = frames[SHARD_STEPS + 1:]
+    encode(frame)  # warm-up
+    enc_ms = []
+    for _ in range(5):
+        dist.barrier()
+        enc_ms.append(time_ms(lambda: encode(frame), 1, 0))
+    held, keep = [], {}
+    glob = [b.attn for b in eng.model.image_encoder.trunk.blocks if b.attn.is_global]
+    dist.barrier()
+    att.reset_launch_counts()
+    with _attn_tap(glob, held, keep, "global"):
+        feats = encode(frame)
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    bank, o = eng.track_step(feats, bank, SHARD_STEPS + 1, NUM_FRAMES)
+    from det_sam2_tpu_torch.parallel.inference_sharding import gather_objects
+
+    o = gather_objects(mesh, o)
+    res["spatial"] = {"feats": [f.cpu() for f in feats], "launches": launches,
+                      "held": _summary(held), "keep": keep["global"], "encode_ms": enc_ms,
+                      "track": {k: v.float().cpu() for k, v in o.items()}}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+SHARD_WORKER = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+                "sys.exit(chip_smoke.shard_worker({rank}, {world}, {port}, {ckpt!r}, {out!r}))")
+
+
+def _run_shard_workers(ckpt, work):
+    """SHARD_WORLD gloo ranks on card 0, each a process of its own: their
+    results, or None when one failed (its log is printed)."""
+    out = tempfile.mkdtemp(dir=work)
+    port = _free_port()
+    root = str(Path(__file__).resolve().parent)
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(SHARD_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", SHARD_WORKER.format(root=root, rank=r, world=SHARD_WORLD,
+                                                   port=port, ckpt=ckpt, out=out)],
+        cwd=root, stdout=logs[r], stderr=subprocess.STDOUT) for r in range(SHARD_WORLD)]
+    ok = True
+    try:
+        for p in procs:
+            ok &= p.wait(timeout=600) == 0
+    except subprocess.TimeoutExpired:
+        ok = False
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, f in enumerate(logs):
+        f.seek(0)
+        text = f.read().strip()
+        f.close()
+        if text and not ok:
+            log(f"[shard] rank {r} output:\n{text[-4000:]}")
+    if not ok:
+        log("[shard] a gloo rank failed FAIL")
+        return None
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(SHARD_WORLD)]
+
+
+def _sharded_k1_row(args, results, gpu, label, path) -> bool:
+    dev = torch.device("cuda", 0)
+    return _k1_row(tuple(t.to(dev) for t in args), results, gpu, label, path=path)
+
+
+def phase_sharded(dev, results, ckpt, work):
+    """Phase 11 (c, d). Returns (ok, launches of the object-sharded session,
+    launches of the spatial encode), each summed over the ranks."""
+    import torch.distributed as dist
+
+    from det_sam2_tpu_torch.build import build_sam2_engine
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.parallel.mesh import make_mesh
+    from det_sam2_tpu_torch.parallel.spatial import make_spatial_encode
+    from det_sam2_tpu_torch.training import launch
+
+    gpu = gpu_line()
+    cfg = sam2_1_hiera_s()
+    eng = build_sam2_engine(cfg, ckpt)
+    frames = shard_frames(dev)
+    frame = frames[SHARD_STEPS + 1:]
+    # the single process: the session, the encode and a track_step from it
+    shard_object_session(eng, frames)  # warm-up
+    timings = []
+    ref, bank = shard_object_session(eng, frames, timings=timings)
+    ref_feats = eng.encode_image(frame)
+    _, ref_track = eng.track_step(ref_feats, bank, SHARD_STEPS + 1, NUM_FRAMES)
+    ref_track = {k: v.float() for k, v in ref_track.items()}
+    enc_ms = _median_encode_ms(eng, frame)
+
+    # world 1 over NCCL (launch.init_distributed): bit for bit the unsharded
+    launch.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        one, _ = shard_object_session(eng, frames, make_mesh(axis_names=("objects",)))
+        feats1 = make_spatial_encode(eng, make_mesh(axis_names=("spatial",)))(frame)
+    finally:
+        dist.destroy_process_group()
+    same = (all(torch.equal(a[k], b[k]) for a, b in zip(ref, one) for k in a)
+            and all(torch.equal(a, b) for a, b in zip(ref_feats, feats1)))
+    log(f"[shard] ({gpu}) world 1 over NCCL: object-sharded session and spatial encode "
+        f"bit for bit equal to the unsharded ones: {same} {'OK' if same else 'FAIL'}")
+    ok = same
+    del one, feats1
+
+    t0 = time.perf_counter()
+    ranks = _run_shard_workers(ckpt, work)
+    log(f"[shard] {SHARD_WORLD} gloo processes on card 0: {time.perf_counter() - t0:.1f} s "
+        f"(start-up, engine build and both modes)")
+    zero = {k: 0 for k in ("flash_fwd", "flash_banked_keys", "flash_banked_fwd",
+                           "flash_bwd_dq", "flash_bwd_dkv")}
+    if ranks is None:
+        return False, zero, zero
+    log(f"[shard] gloo collectives on card 0 (torch {torch.__version__}): "
+        f"{ranks[0]['probe']}")
+
+    # (c) objects
+    obj = [r["objects"] for r in ranks]
+    got = obj[0]["outs"]
+    ok &= _compare(f"object-sharded ({SHARD_WORLD} gloo ranks x {SHARD_OBJECTS // SHARD_WORLD} "
+                   "objects) vs the single process", [{k: v.cpu() for k, v in o.items()}
+                                                      for o in ref], got)
+    same_ranks = all(torch.equal(o[k], p[k]) for r in obj[1:] for o, p in zip(r["outs"], got)
+                     for k in o)
+    sliced = all(r["bank_objects"] == SHARD_OBJECTS // SHARD_WORLD and not r["bank_mem_k"]
+                 for r in obj)
+    want = dict(zero, flash_fwd=SHARD_K1)
+    counts_ok = all(r["launches"] == want for r in obj)
+    held_ok = all(r["held"]["good"] for r in obj)
+    n_held = sum(r["held"]["n"] for r in obj)
+    good = same_ranks and sliced and counts_ok and held_ok and n_held == SHARD_WORLD * SHARD_STEPS * 4
+    step_ms = float(np.mean([np.mean(r["step_ms"]) for r in obj]))
+    log(f"[shard] ({gpu}) object-sharded: every rank holds the same joined outputs "
+        f"{same_ranks}; each rank's bank cut to {SHARD_OBJECTS // SHARD_WORLD} object rows, no "
+        f"banked caches {sliced}; launches a rank {[r['launches'] for r in obj]} (expected "
+        f"{want}); {n_held} gather-mode cross-attention K1 calls held against the plain "
+        f"version on the same inputs, worst {_fmt(max((r['held']['worst'] for r in obj), key=lambda h: max(h['max_ulps'], h['mean_eps'])))} "
+        f"{'OK' if good else 'FAIL'}")
+    log(f"[shard] ({gpu}) track_step (encode + track): {step_ms:.3f} ms a step on each of "
+        f"{SHARD_WORLD} ranks sharing the card, {float(np.mean(timings)):.3f} ms single "
+        f"process (a fact of one card, not a gain)")
+    ok &= good
+    ok &= _sharded_k1_row(obj[0]["keep"], results, gpu, "gather_cross_attn_sharded",
+                          "object_sharded")
+
+    # (d) spatial
+    sp = [r["spatial"] for r in ranks]
+    ok &= _features_close(f"spatial encode ({SHARD_WORLD} gloo ranks) vs the single process",
+                          [f.cpu() for f in ref_feats], sp[0]["feats"])
+    same_feats = all(torch.equal(a, b) for r in sp[1:] for a, b in zip(r["feats"], sp[0]["feats"]))
+    want = dict(zero, flash_fwd=ENCODE_K1)
+    counts_ok = all(r["launches"] == want for r in sp)
+    held_ok = all(r["held"]["good"] for r in sp) and sum(r["held"]["n"] for r in sp) == \
+        SHARD_WORLD * ENCODE_K1
+    nq = [r["keep"][0].shape[1] for r in sp]
+    nk = sp[0]["keep"][1].shape[1]
+    good = same_feats and counts_ok and held_ok and sum(nq) == nk
+    log(f"[shard] ({gpu}) spatial: every rank holds the same features {same_feats}; "
+        f"launches a rank {[r['launches'] for r in sp]} (expected {want}); global-block K1 "
+        f"with row-sliced queries {nq} against {nk} keys, every call held against the "
+        f"plain version: {held_ok}, worst {_fmt(max((r['held']['worst'] for r in sp), key=lambda h: max(h['max_ulps'], h['mean_eps'])))}; "
+        f"encode {float(np.median(sp[0]['encode_ms'])):.3f} ms (median of 5, {SHARD_WORLD} "
+        f"ranks sharing the card) vs {enc_ms:.3f} ms single process (a fact, not a gain) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    ok &= _compare("track_step on the spatially-encoded features vs on encode_image's",
+                   [{k: v.cpu() for k, v in ref_track.items()}], [sp[0]["track"]])
+    ok &= _sharded_k1_row(sp[0]["keep"], results, gpu, "hiera_global_rows_sharded", "spatial")
+    sum_counts = [{k: sum(r[m]["launches"][k] for r in ranks) for k in zero}
+                  for m in ("objects", "spatial")]
+    del eng, frames
+    torch.cuda.empty_cache()
+    return ok, sum_counts[0], sum_counts[1]
+
+
 def gpu_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3819,6 +4400,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; nothing was run")
         return 2
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -3896,9 +4478,20 @@ def main() -> int:
         ok &= ok_trainer
         log(f"[time] phase 10 (training stack) {time.time() - t_phase:.1f} s "
             f"({gpu_line()})")
+        t_phase = time.time()
+        ok_int8, int8_trunk = phase_int8(dev, results, ckpt)
+        ok &= ok_int8
+        ok_yaml, yaml_path = phase_yaml(dev, results, ckpt, work)
+        ok &= ok_yaml
+        ok_shard, object_sharded, spatial = phase_sharded(dev, results, ckpt, work)
+        ok &= ok_shard
+        log(f"[time] phase 11 (int8 trunk, YAML, sharded inference) "
+            f"{time.time() - t_phase:.1f} s ({gpu_line()})")
     counts = {"serving": serving, "training": training, "predictor": predictor,
               "application": application, "image": image, "http": http,
-              "batched": batched, "trainer": trainer, "validate_jf": validate_jf}
+              "batched": batched, "trainer": trainer, "validate_jf": validate_jf,
+              "int8_trunk": int8_trunk, "yaml": yaml_path, "object_sharded": object_sharded,
+              "spatial": spatial}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
@@ -3908,7 +4501,9 @@ def main() -> int:
                         ("image", ("flash_fwd",)), ("http", serving_kernels),
                         ("batched", serving_kernels),
                         ("trainer", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                        ("validate_jf", serving_kernels)):
+                        ("validate_jf", serving_kernels),
+                        ("int8_trunk", serving_kernels), ("yaml", serving_kernels),
+                        ("object_sharded", ("flash_fwd",)), ("spatial", ("flash_fwd",))):
         for name in names:
             if counts[path][name] <= 0:
                 log(f"[main] kernel {name} was not launched by the {path} path")
@@ -3917,6 +4512,7 @@ def main() -> int:
                              if r["name"].startswith(n + ":")}:
         log("[main] the kernel table does not cover every kernel")
         ok = False
+    log(f"[time] the whole command {time.time() - t_start:.1f} s")
     if not ok:
         log("chip_smoke: FAILED")
         return 1

@@ -1,14 +1,14 @@
 """Model builders: the public construction API.
 
 Counterpart of the JAX package's ``build.py``: a preset name, SAM 2.1
-HF-hub id or ``SAM2Config`` plus a checkpoint -> ``SAM2Engine`` /
-``SAM2ImagePredictor`` / ``SAM2VideoPredictor``. Checkpoints: a SAM 2.1
-``.pt`` state dict (loaded strictly: the port keeps SAM 2.1's key layout),
-the port trainer's checkpoint file or directory, or the JAX package's
-``save_params_npz`` file (read with numpy). Options the port does not have
-yet raise instead of doing something else: reference YAML configs and the
-int8 trunk (each a ROADMAP item). The JAX trainer's orbax directories need
-JAX to read and are refused with a pointer to ``save_params_npz``.
+HF-hub id, reference Hydra YAML file (``config_yaml``) or ``SAM2Config``
+plus a checkpoint -> ``SAM2Engine`` / ``SAM2ImagePredictor`` /
+``SAM2VideoPredictor``, optionally with the W8A8 int8 trunk
+(``ops.quant``). Checkpoints: a SAM 2.1 ``.pt`` state dict (loaded strictly:
+the port keeps SAM 2.1's key layout), the port trainer's checkpoint file or
+directory, or the JAX package's ``save_params_npz`` file (read with numpy).
+The JAX trainer's orbax directories need JAX to read and are refused with a
+pointer to ``save_params_npz``.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import torch
 from det_sam2_tpu_torch import convert
 from det_sam2_tpu_torch.configs import MODEL_CONFIGS, SAM2Config, with_image_size
 from det_sam2_tpu_torch.image_predictor import SAM2ImagePredictor
+from det_sam2_tpu_torch.modeling.sam2_base import SAM2Model
+from det_sam2_tpu_torch.ops.quant import quantize_trunk
 from det_sam2_tpu_torch.track import SAM2Engine
 from det_sam2_tpu_torch.video_predictor import SAM2VideoPredictor
 
@@ -48,11 +50,16 @@ def _resolve_cfg(model_cfg, **overrides) -> SAM2Config:
         return _sized(dataclasses.replace(model_cfg, **overrides))
     if isinstance(model_cfg, str):
         if model_cfg.endswith((".yaml", ".yml")) and os.path.isfile(model_cfg):
-            raise NotImplementedError(
-                "reference YAML configs are not read by the port yet (ROADMAP "
-                "Queue 1 item 11: config_yaml.py); pass a preset name, an HF id "
-                "or a SAM2Config"
+            # a reference Hydra YAML, with the video predictor's
+            # postprocessing injections (so it matches the presets);
+            # explicit kwargs still win
+            from det_sam2_tpu_torch.config_yaml import (
+                load_reference_yaml,
+                video_predictor_overrides,
             )
+
+            cfg = load_reference_yaml(model_cfg, video_predictor_overrides())
+            return _sized(dataclasses.replace(cfg, **overrides))
         key = HF_MODEL_IDS.get(model_cfg, model_cfg)
         key = (key.replace("sam2.1_", "").replace(".yaml", "")
                .replace("configs/sam2.1/", ""))
@@ -60,7 +67,8 @@ def _resolve_cfg(model_cfg, **overrides) -> SAM2Config:
             return _sized(MODEL_CONFIGS[key](**overrides))
     raise ValueError(
         f"unknown model config {model_cfg!r}; use one of {list(MODEL_CONFIGS)}, "
-        f"an HF id of {list(HF_MODEL_IDS)} or a SAM2Config"
+        f"an HF id of {list(HF_MODEL_IDS)}, a reference YAML file path or a "
+        "SAM2Config"
     )
 
 
@@ -115,13 +123,20 @@ def build_sam2_engine(
 ) -> SAM2Engine:
     """The engine of a config (overrides: SAM2Config fields, image_size
     included) with the checkpoint's weights loaded strictly. device: None =
-    CUDA (raises without a card). plain_kernels: SAM2Engine's."""
-    if quantize_int8:
-        raise NotImplementedError(
-            "the int8 trunk is not ported yet (ROADMAP Queue 1 item 10)")
+    CUDA (raises without a card). plain_kernels: SAM2Engine's.
+    quantize_int8: the fp weights (the seeded random init without a
+    checkpoint) are quantised to the W8A8 int8 trunk (``ops.quant``) and the
+    config gains ``hiera.quantize_int8=True``; inference only."""
     cfg = _resolve_cfg(model_cfg, **overrides)
-    return SAM2Engine(cfg, params=_load_params(checkpoint), dtype=dtype,
-                      device=device, plain_kernels=plain_kernels)
+    params = _load_params(checkpoint)
+    if quantize_int8:
+        if params is None:  # SAM2Engine's seeded init (seed 0), then quantised
+            params = convert.init_params(SAM2Model(cfg), 0)
+        cfg = dataclasses.replace(
+            cfg, hiera=dataclasses.replace(cfg.hiera, quantize_int8=True))
+        params = quantize_trunk(params, skip=cfg.hiera.quant_skip)
+    return SAM2Engine(cfg, params=params, dtype=dtype, device=device,
+                      plain_kernels=plain_kernels)
 
 
 def build_sam2(

@@ -2,9 +2,7 @@
 
 The port's own copy of the JAX package's ``configs.py``: the same plain
 dataclasses, field names, defaults and presets, so a config built for one
-package describes the same model in the other. The int8-trunk fields
-(``quantize_int8``, ``quant_skip``) select a JAX/TPU code path the port does
-not have yet and are left out.
+package describes the same model in the other.
 """
 
 from __future__ import annotations
@@ -34,6 +32,16 @@ class HieraConfig:
     # stochastic depth of both residual branches of every block, linear over
     # depth (training only: active when the trunk is handed a generator)
     drop_path_rate: float = 0.0
+    # W8A8 int8 trunk dense layers (ops/quant.py): int8 weights per output
+    # channel (quant.quantize_trunk of an fp state dict) and int8 activations
+    # per token, multiplied as int8 x int8 -> int32. Inference only: the
+    # rounding has no gradient.
+    quantize_int8: bool = False
+    # layer kinds kept full precision when quantize_int8 is set: any of
+    # "qkv", "attn_out", "mlp", "proj" (the dim-change shortcut projection);
+    # must match the `skip` given to quant.quantize_trunk. "proj" by default:
+    # quantising the residual stream's shortcut cost the most fidelity.
+    quant_skip: Tuple[str, ...] = ("proj",)
 
     @property
     def depth(self) -> int:

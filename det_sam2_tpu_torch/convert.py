@@ -6,6 +6,8 @@ The state dict keeps the SAM 2.1 torch key layout, so a SAM 2.1 checkpoint's
 port's own copy of the JAX package's export rules):
 
   Dense kernel [in, out]              -> Linear weight [out, in]
+  int8 kernel_q [in, out], kernel_scale [1, out]
+                                       -> weight_q [out, in], weight_scale [out]
   Conv kernel [kh, kw, in, out] (HWIO) -> Conv2d weight [out, in, kh, kw]
   ConvTranspose2x kernel [in, out, 2, 2] (stored torch-style) -> verbatim
   LayerNorm scale / bias               -> weight / bias
@@ -28,7 +30,11 @@ def _n(x) -> np.ndarray:
 
 
 def _linear(out: Dict, prefix: str, p: Dict) -> None:
-    out[f"{prefix}.weight"] = _n(p["kernel"]).T
+    if "kernel_q" in p:  # an int8 layer of the JAX package's quantize_trunk
+        out[f"{prefix}.weight_q"] = np.asarray(p["kernel_q"], np.int8).T
+        out[f"{prefix}.weight_scale"] = _n(p["kernel_scale"]).reshape(-1)
+    else:
+        out[f"{prefix}.weight"] = _n(p["kernel"]).T
     if "bias" in p:
         out[f"{prefix}.bias"] = _n(p["bias"])
 
@@ -191,15 +197,18 @@ def from_jax_params(params: Dict) -> Dict[str, torch.Tensor]:
 
 def init_params(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
     """Seeded random weights for `model`, the rule of the JAX engine's
-    ``_init_params``: ones for LayerNorm weights and ``gamma``, zeros for
-    biases, N(0, 0.02) for everything else, drawn from
-    ``numpy.random.default_rng(seed)`` in state-dict order."""
+    ``_init_params``: ones for LayerNorm weights, ``gamma`` and int8 scales,
+    zeros for biases and int8 weights, N(0, 0.02) for everything else,
+    drawn from ``numpy.random.default_rng(seed)`` in state-dict order."""
     rng = np.random.default_rng(seed)
     ln = {f"{name}.weight" for name, m in model.named_modules()
           if isinstance(m, LayerNorm)}
     out = {}
     for key, t in model.state_dict().items():
-        if key in ln or key.endswith("gamma"):
+        if not t.is_floating_point():
+            out[key] = torch.zeros(t.shape, dtype=t.dtype)
+            continue
+        if key in ln or key.endswith(("gamma", "weight_scale")):
             v = np.ones(t.shape, np.float32)
         elif key.endswith("bias"):
             v = np.zeros(t.shape, np.float32)

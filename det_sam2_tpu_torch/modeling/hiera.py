@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``modeling/hiera.py``. NHWC end to end;
 windowed attention stacks windows in the batch axis. Global-attention
 blocks (and a windowed block whose single window is the whole grid) call
 ``attention_fn`` (K1, ``ops.attention.flash_attention``); windowed blocks
-are plain attention, as the JAX package left them to XLA.
+are plain attention, as the JAX package left them to XLA. With
+``cfg.quantize_int8`` the blocks' dense layers of the kinds not in
+``cfg.quant_skip`` are ``ops.quant.QuantLinear`` (W8A8, inference only).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from det_sam2_tpu_torch.modeling.layers import (
     sdpa,
     uniform,
 )
+from det_sam2_tpu_torch.ops import quant
 
 
 def window_partition(x: torch.Tensor, ws: int):
@@ -68,24 +71,29 @@ class PatchEmbed(nn.Module):
         super().__init__()
         self.proj = nn.Conv2d(3, embed_dim, kernel, stride, padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
-        w = self.proj.weight
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, H, W, 3] -> the convolution's NCHW input in the weights' type."""
         if x.dtype == torch.uint8:
             mean = torch.tensor(IMAGENET_MEAN, device=x.device)
             std = torch.tensor(IMAGENET_STD, device=x.device)
             x = (x.float() / 255.0 - mean) / std
-        x = x.to(w.dtype).permute(0, 3, 1, 2)
-        return self.proj(x).permute(0, 2, 3, 1)
+        return x.to(self.proj.weight.dtype).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, 3]
+        return self.proj(self.normalize(x)).permute(0, 2, 3, 1)
 
 
 class MultiScaleAttention(nn.Module):
     """Windowed / global attention with optional 2x query pooling."""
 
     def __init__(self, dim: int, dim_out: int, num_heads: int,
-                 q_pool: bool, is_global: bool, attention_fn: Callable):
+                 q_pool: bool, is_global: bool, attention_fn: Callable,
+                 quant_qkv: bool = False, quant_out: bool = False):
         super().__init__()
-        self.qkv = nn.Linear(dim, 3 * dim_out)
-        self.proj = nn.Linear(dim_out, dim_out)
+        # quantised, qkv is one int8 product over rows quantised once, and
+        # the output projection's rows span (heads, D)
+        self.qkv = quant.linear(dim, 3 * dim_out, quant_qkv)
+        self.proj = quant.linear(dim_out, dim_out, quant_out)
         self.num_heads = num_heads
         self.q_pool = q_pool
         self.is_global = is_global
@@ -118,7 +126,7 @@ class MultiScaleBlock(nn.Module):
     def __init__(self, dim: int, dim_out: int, num_heads: int,
                  window_size: int, q_stride: Optional[Tuple[int, int]],
                  mlp_ratio: float, attention_fn: Callable, gelu: Callable,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, quant_kinds: Tuple[str, ...] = ()):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, eps=1e-6)
@@ -127,11 +135,13 @@ class MultiScaleBlock(nn.Module):
         self.attn = MultiScaleAttention(
             dim, dim_out, num_heads, q_pool=q_stride is not None,
             is_global=window_size == 0, attention_fn=attention_fn,
+            quant_qkv="qkv" in quant_kinds, quant_out="attn_out" in quant_kinds,
         )
         self.norm2 = LayerNorm(dim_out, eps=1e-6)
         self.mlp = MLP(dim_out, int(dim_out * mlp_ratio), dim_out, 2,
-                       activation=gelu)
-        self.proj = nn.Linear(dim, dim_out) if dim != dim_out else None
+                       activation=gelu, quant="mlp" in quant_kinds)
+        self.proj = (quant.linear(dim, dim_out, "proj" in quant_kinds)
+                     if dim != dim_out else None)
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -179,6 +189,7 @@ class Hiera(nn.Module):
         self.pos_embed_window = nn.Parameter(torch.zeros(1, c.embed_dim, ws0, ws0))
         q_pool_blocks = set(c.q_pool_blocks)
         global_blocks = set(c.global_att_blocks or ())
+        kinds = quant.quant_kinds(c)
         blocks = []
         embed_dim, num_heads, cur_stage = c.embed_dim, c.num_heads, 1
         # stochastic depth, linear over depth on both residual branches
@@ -195,7 +206,7 @@ class Hiera(nn.Module):
             blocks.append(MultiScaleBlock(
                 embed_dim, dim_out, num_heads, window_size,
                 c.q_stride if i in q_pool_blocks else None, c.mlp_ratio,
-                attention_fn, gelu, drop_path_rate=dpr[i],
+                attention_fn, gelu, drop_path_rate=dpr[i], quant_kinds=kinds,
             ))
             embed_dim = dim_out
         self.blocks = nn.ModuleList(blocks)
@@ -212,14 +223,11 @@ class Hiera(nn.Module):
         u = uniform((len(self.blocks), 2, n), generator, device)
         return u < (1.0 - rates)[:, None, None]
 
-    def forward(self, x: torch.Tensor,
-                drop_keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-        """x [B, H, W, 3] -> per-stage maps; drop_keep from
-        ``draw_drop_path`` (training) or None (no stochastic depth)."""
-        c = self.cfg
-        x = self.patch_embed(x)
-        h, w = x.shape[1], x.shape[2]
-        ws0 = c.window_spec[0]
+    def pos_embed_at(self, h: int, w: int) -> torch.Tensor:
+        """The fp32 positional embedding [1, h, w, C] of an (h, w) patch
+        grid: the background embedding resized bicubically plus the tiled
+        window embedding."""
+        ws0 = self.cfg.window_spec[0]
         if h % ws0 or w % ws0:
             raise ValueError(
                 f"Hiera input must give a post-patch-embed grid divisible by "
@@ -228,7 +236,15 @@ class Hiera(nn.Module):
         pe = F.interpolate(self.pos_embed.float(), size=(h, w), mode="bicubic",
                            align_corners=False)
         pe = pe + self.pos_embed_window.float().tile(1, 1, h // ws0, w // ws0)
-        x = x + pe.permute(0, 2, 3, 1).to(x.dtype)
+        return pe.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor,
+                drop_keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """x [B, H, W, 3] -> per-stage maps; drop_keep from
+        ``draw_drop_path`` (training) or None (no stochastic depth)."""
+        c = self.cfg
+        x = self.patch_embed(x)
+        x = x + self.pos_embed_at(x.shape[1], x.shape[2]).to(x.dtype)
         outputs = []
         for i, blk in enumerate(self.blocks):
             x = blk(x, None if drop_keep is None else drop_keep[i])

@@ -67,7 +67,11 @@ class ImageEncoder(nn.Module):
                 drop_keep: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
         """sample [B, H, W, 3] -> NHWC FPN features, highest res first.
         drop_keep: the trunk's drop-path masks (``Hiera.draw_drop_path``)."""
-        features = self.neck(self.trunk(sample, drop_keep))
+        return self.neck_features(self.trunk(sample, drop_keep))
+
+    def neck_features(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The trunk's stage outputs -> the scalped FPN features."""
+        features = self.neck(xs)
         if self.scalp > 0:
             features = features[: -self.scalp]
         return features

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from det_sam2_tpu_torch.ops.quant import linear
+
 # ImageNet normalization (SAM 2 transforms defaults)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -37,16 +39,17 @@ def conv_nhwc(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 class MLP(nn.Module):
     """N-layer perceptron with an activation between layers and an optional
-    sigmoid on the output (SAM 2 ``sam2_utils.MLP``)."""
+    sigmoid on the output (SAM 2 ``sam2_utils.MLP``). quant: int8 layers
+    (``ops.quant.QuantLinear``; the trunk's opt-in only)."""
 
     def __init__(self, input_dim: int, hidden_dim: int, output_dim: int,
                  num_layers: int, activation: Callable = F.relu,
-                 sigmoid_output: bool = False):
+                 sigmoid_output: bool = False, quant: bool = False):
         super().__init__()
         dims_in = [input_dim] + [hidden_dim] * (num_layers - 1)
         dims_out = [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            nn.Linear(i, o) for i, o in zip(dims_in, dims_out)
+            linear(i, o, quant) for i, o in zip(dims_in, dims_out)
         )
         self.activation = activation
         self.sigmoid_output = sigmoid_output

@@ -145,6 +145,11 @@ class SAM2Model(nn.Module):
             fpn = checkpoint(self.image_encoder, img, keep, use_reentrant=False)
         else:
             fpn = self.image_encoder(img, keep)
+        return self.decoder_features(fpn)
+
+    def decoder_features(self, fpn: List[torch.Tensor]):
+        """The image encoder's FPN features -> (feat_s0, feat_s1, feat) of
+        ``forward_image``."""
         if self.cfg.use_high_res_features_in_sam:
             dec = self.sam_mask_decoder
             return (conv_nhwc(dec.conv_s0, fpn[0]), conv_nhwc(dec.conv_s1, fpn[1]),

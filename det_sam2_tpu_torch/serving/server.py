@@ -315,8 +315,8 @@ def main():  # pragma: no cover
     ap.add_argument("--uploads", default=defaults["uploads"],
                     help="directory for uploaded/transcoded videos")
     ap.add_argument("--int8", action="store_true",
-                    help="serve with the W8A8 int8 trunk (not ported yet: "
-                    "raises)")
+                    help="serve with the W8A8 int8 trunk (ops/quant.py: int8 "
+                    "weights and activations, torch._int_mm on the card)")
     args = ap.parse_args()
 
     # bf16 on CUDA; raises without a card

@@ -168,8 +168,9 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     mods = res.stdout.split()
-    # every submodule, training/, utils/, app/, serving/ and tools/ too
-    assert len(mods) >= 61
+    # every submodule, training/, utils/, app/, serving/, tools/ and
+    # parallel/ too
+    assert len(mods) >= 65
     for m in ("utils.misc", "video_predictor", "build", "image_predictor",
               "automatic_mask_generator", "utils.amg", "utils.profiling",
               "app.detector", "app.rtsp", "app.video_processor", "app.postprocess",
@@ -179,7 +180,8 @@ def test_port_imports_no_jax():
               "tools.sav_benchmark", "tools.sav_utils", "tools.vos_inference",
               "tools.extract_frames", "tools.process_dataset", "training.dataset",
               "training.trainer", "training.checkpoint_utils", "training.launch",
-              "parallel.mesh"):
+              "parallel.mesh", "config_yaml", "ops.quant", "parallel.inference_sharding",
+              "parallel.spatial"):
         assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 

@@ -454,3 +454,36 @@ def test_trainer_checkpoint_round_trip_on_cuda(dev, tmp_path):
         torch.testing.assert_close(got[1][k], got[0][k], rtol=1e-5, atol=0, msg=k)
     for (n, a), b in zip(live.model.state_dict().items(), fresh.model.state_dict().values()):
         torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-7, msg=n)
+
+
+@pytest.mark.cuda
+def test_int8_products_equal_their_cpu_result_at_hiera_s_shapes_on_cuda(dev, monkeypatch):
+    """The W8A8 trunk's int8 products (torch._int_mm, cuBLASLt's int8 GEMM
+    on the card) at every shape a hiera-S 1024^2 encode gives them equal the
+    CPU's exact int32 sums bit for bit; a shape torch._int_mm refuses on the
+    card raises instead of taking a floating-point product."""
+    from det_sam2_tpu_torch.build import build_sam2_engine
+    from det_sam2_tpu_torch.ops import quant
+
+    eng = build_sam2_engine("hiera_s", quantize_int8=True, device=dev)
+    shapes, real = set(), quant.int8_mm
+
+    def record(x_q, w_q):
+        shapes.add((x_q.shape[0], x_q.shape[1], w_q.shape[0]))
+        return real(x_q, w_q)
+
+    monkeypatch.setattr(quant, "int8_mm", record)
+    feats = eng.encode_image(np.zeros((1, 1024, 1024, 3), np.uint8))
+    assert all(bool(torch.isfinite(f).all()) for f in feats)
+    monkeypatch.undo()
+    assert len(shapes) >= 8, shapes
+    g = torch.Generator().manual_seed(0)
+    for m, k, n in sorted(shapes):
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+        a[0], w[0] = 127, -127  # the largest sums int8 can give
+        want = quant.int8_mm(a, w)
+        assert torch.equal(quant.int8_mm(a.to(dev), w.to(dev)).cpu(), want), (m, k, n)
+    with pytest.raises(ValueError, match="_int_mm"):
+        quant.int8_mm(torch.zeros(16, 32, dtype=torch.int8, device=dev),
+                      torch.zeros(32, 32, dtype=torch.int8, device=dev))

@@ -300,20 +300,22 @@ def test_build_video_predictor_from_pt_and_npz(engines, tmp_path):
 def test_resolve_cfg_matches_jax(model_cfg, overrides):
     got = dataclasses.asdict(build._resolve_cfg(model_cfg, **dict(overrides)))
     want = dataclasses.asdict(jax_build._resolve_cfg(model_cfg, **dict(overrides)))
-    for k in ("quantize_int8", "quant_skip"):  # the JAX-only int8 fields
-        want["hiera"].pop(k, None)
     assert got == want
 
 
 def test_build_refuses_what_is_not_ported(engines, tmp_path):
+    # reference YAMLs and the int8 trunk are ported (tests/test_torch_config_yaml.py,
+    # tests/test_torch_quant.py); a YAML without a model tree or with a key
+    # the reference builder does not know is refused
     yaml = tmp_path / "sam2.1_hiera_s.yaml"
-    yaml.write_text("model: {}\n")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    yaml.write_text("trainer: {}\n")
+    with pytest.raises(ValueError, match="model"):
+        build.build_sam2_engine(str(yaml), device="cpu")
+    yaml.write_text("model:\n  image_size: 128\n  bogus: 1\n")
+    with pytest.raises(ValueError, match="bogus"):
         build.build_sam2_engine(str(yaml), device="cpu")
     with pytest.raises(NotImplementedError, match="save_params_npz"):  # orbax dir
         build.build_sam2_engine(tiny_test_config(), str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build.build_sam2_engine(tiny_test_config(), quantize_int8=True, device="cpu")
     with pytest.raises(ValueError, match="unknown model config"):
         build.build_sam2_engine("hiera_xl", device="cpu")
     if not torch.cuda.is_available():  # CUDA by default, no CPU fallback
