@@ -47,7 +47,13 @@ with every kernel's plain version (masks, pointers, memory cross-attention
 outputs at each K2 shape reached, every K2 call held in context), and an
 engine window against per-frame stream_steps leaving a bit-identical bank;
 prints window ms/frame, FPS, peak and released memory, and K2 / K1 at the
-new shapes against their plain versions.
+new shapes against their plain versions. Last, the export round trip:
+export.save_torch_checkpoint of that bf16 predictor (fp32 on the CPU), the
+top-level det_sam2_tpu_torch.build_sam2_video_predictor from the file, and
+8 seeded 720x1280 frames with 2 box-prompted objects through both: masks
+and object pointers bit for bit, K1 / K2 launches as the session implies;
+one exported weight that every tracked frame reads (the object-pointer
+projection's last) nudged by one bf16 ulp must change them.
 Phase 6 (the Det-SAM2 application): VideoProcessor at its defaults (buffer
 30, detect every 30, reverse propagation over 60, keep 60) on phase 5's
 predictor over a seeded synthetic billiards stream (1080x1920, six pockets
@@ -60,7 +66,10 @@ the balls prompted; then 90 frames with every K2 call held in context
 against a plain-kernel processor, a planted K2 fault that must fail, and
 DetSAM2Pipeline over 120 frames whose threaded postprocessor must equal a
 synchronous one over the segments it handed off. Prints ms/frame, FPS, the
-processor's stats, the host mask resize's share, peak and allocated memory.
+processor's stats, the host mask resize's share, peak and allocated memory,
+and, not gated, prepare_frame's median host ms per frame at 720x1280 and
+1080x1920 -> 1024 beside the torch bilinear it replaced and the run's
+update_state_s.
 Phase 7 (the image predictor and AMG): build_sam2 from the same .pt,
 seeded 720x1280 images: set_image and predict (box, clicks, mask input,
 multimask on and off), set_image_batch of 4 (one encode: K1 at [16, 4096,
@@ -1681,8 +1690,94 @@ def write_seeded_checkpoint(cfg, workdir) -> str:
     return ckpt
 
 
+EXPORT_FRAMES = 8  # frames of the export round trip's session
+
+
+def _export_session(vp, video):
+    """Boxes for objects 1 and 2 on frame 0, then propagation: per frame
+    the yielded video-res masks and the stored object pointers."""
+    s = vp.init_state(video)
+    vp.add_new_points_or_box(s, 0, 1, box=_rect(0, 0))
+    vp.add_new_points_or_box(s, 0, 2, box=_rect(1, 0))
+    out = []
+    for f, _, m in vp.propagate_in_video(s):
+        store = s.cond_outputs[f] if f in s.cond_outputs else s.noncond_outputs[f]
+        out.append((f, np.array(m), np.array(store["obj_ptr"])))
+    return out
+
+
+def _same_session(a, b) -> bool:
+    return [f for f, _, _ in a] == [f for f, _, _ in b] and all(
+        np.array_equal(ma, mb) and np.array_equal(pa, pb)
+        for (_, ma, pa), (_, mb, pb) in zip(a, b))
+
+
+def export_round_trip(vp, work, gpu):
+    """Phase 5's last step: export.save_torch_checkpoint of phase 5's bf16
+    predictor, det_sam2_tpu_torch.build_sam2_video_predictor from that file,
+    both over the same 8 frames: masks and pointers bit for bit (bf16 -> fp32
+    -> bf16 is exact), K1 / K2 launches as the session implies; then one
+    exported weight that every tracked frame reads nudged by one bf16 ulp,
+    which must change them. Returns (ok, launches of the rebuilt session)."""
+    import det_sam2_tpu_torch
+    from det_sam2_tpu_torch import export
+    from det_sam2_tpu_torch.ops import attention as att
+
+    t0 = time.perf_counter()
+    video = synthetic_video(EXPORT_FRAMES, 4)
+    path = os.path.join(work, "exported.pt")
+    export.save_torch_checkpoint(vp, path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)["model"]
+    widened = all(t.dtype == torch.float32 and t.device.type == "cpu" for t in sd.values())
+
+    def rebuilt(ckpt):
+        vp2 = det_sam2_tpu_torch.build_sam2_video_predictor(vp.engine.cfg, ckpt)
+        vp2.add_all_frames_to_correct_as_cond = vp.add_all_frames_to_correct_as_cond
+        return vp2
+
+    want = _export_session(vp, video)
+    vp2 = rebuilt(path)
+    _sync(vp2.engine.device)
+    att.reset_launch_counts()
+    got = _export_session(vp2, video)
+    _sync(vp2.engine.device)
+    launches = dict(att.LAUNCHES)
+    del vp2
+    same = _same_session(want, got)
+    n = len(want) - 1  # frame 0 is the cond frame
+    implied = {"flash_fwd": ENCODE_K1 * len(want) + TRACK_K1 * n,
+               "flash_banked_keys": TRACK_K2 * n, "flash_banked_fwd": TRACK_K2 * n,
+               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    good = widened and same and launches == implied
+    log(f"[export] ({gpu}) save_torch_checkpoint of phase 5's bf16 predictor: "
+        f"{len(sd)} keys, all fp32 on the CPU: {widened}, {os.path.getsize(path) / 2 ** 20:.1f} "
+        f"MiB; det_sam2_tpu_torch.build_sam2_video_predictor from it: {len(got)} frames of "
+        f"{VP_HW[0]}x{VP_HW[1]}, 2 objects, masks and obj_ptr bit for bit equal to phase 5's "
+        f"predictor: {same}; launches {launches}, implied {implied} ({len(want)} encodes x "
+        f"{ENCODE_K1} K1 + {n} conditioned frames x {TRACK_K1} K1, x {TRACK_K2} K2) "
+        f"{'OK' if good else 'FAIL'}")
+    # the planted fault: every element of the object-pointer projection's
+    # last weight one bf16 ulp further from zero
+    key = [k for k in sd if k.startswith("obj_ptr_proj.") and k.endswith(".weight")][-1]
+    bits = sd[key].view(torch.int32)
+    sd[key] = (bits + (1 << 16)).view(torch.float32)
+    faulty = os.path.join(work, "exported_fault.pt")
+    torch.save({"model": sd}, faulty)
+    vp3 = rebuilt(faulty)
+    caught = not _same_session(want, _export_session(vp3, video))
+    del vp3, sd
+    os.remove(faulty)
+    os.remove(path)
+    log(f"[export] planted fault: {key} one bf16 ulp off before the rebuild: masks or "
+        f"pointers differ: {caught} {'OK' if caught else 'FAIL'}; step "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return good and caught, launches
+
+
 def phase_predictor(dev, results, work, ckpt):
-    """Phase 5. Returns (ok, launches of the session)."""
+    """Phase 5. Returns (ok, launches of the session, launches of the export
+    round trip's rebuilt session)."""
     from det_sam2_tpu_torch.build import build_sam2_video_predictor
     from det_sam2_tpu_torch.configs import sam2_1_hiera_s
     from det_sam2_tpu_torch.ops import attention as att
@@ -1725,6 +1820,8 @@ def phase_predictor(dev, results, work, ckpt):
     with _tapped(eng, check=True, keep=keep) as (taps, shapes, held):
         rec_k = {}
         run_predictor_session(vp, video, video2, work, rec_k)
+    ok_export, export_launches = export_round_trip(vp, work, gpu)
+    ok &= ok_export
     del vp, eng
     plain_vp = predictor(True)
     with _tapped(plain_vp.engine) as (plain_taps, plain_shapes, _):
@@ -1817,7 +1914,7 @@ def phase_predictor(dev, results, work, ckpt):
         ok = False
     del keep
     torch.cuda.empty_cache()
-    return ok, launches
+    return ok, launches, export_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2056,6 +2153,45 @@ def check_pipeline(pipe, post, handed, n, hw) -> bool:
     return good
 
 
+PREP_FRAMES = 10  # frames of each size timed through prepare_frame
+
+
+def frame_prep_times(gpu, stats, n_frames):
+    """The host's frame preparation on this machine (facts, not gated):
+    prepare_frame's median ms per frame at 720x1280 -> 1024 and 1080x1920 ->
+    1024, beside the torch bilinear that it replaced (F.interpolate on the
+    CPU, rounded; within one uint8 level of cv2), and the application run's
+    update_state_s, where the resize is paid."""
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.utils.misc import prepare_frame
+
+    size = sam2_1_hiera_s().image_size
+
+    def torch_bilinear(frame, size):
+        x = torch.tensor(frame).permute(2, 0, 1)[None].float()
+        y = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)
+        return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+    rows = []
+    for hw, frames in ((VP_HW, synthetic_video(PREP_FRAMES, 5)),
+                       (APP_HW, list(billiards_frames(PREP_FRAMES, 5, APP_HW)))):
+        times = {}
+        for label, fn in (("prepare_frame", prepare_frame),
+                          ("torch bilinear (replaced)", torch_bilinear)):
+            ms = []
+            for f in frames:
+                t0 = time.perf_counter()
+                fn(f, size)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            times[label] = float(np.median(ms))
+        rows.append(f"{hw[0]}x{hw[1]} -> {size}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"[frames] ({gpu}) host frame preparation, median ms per frame over {PREP_FRAMES} "
+        f"frames, {torch.get_num_threads()} torch threads: " + "; ".join(rows)
+        + f"; the application run's update_state_s {stats['update_state_s']:.3f} s over "
+        f"{n_frames} frames ({1e3 * stats['update_state_s'] / n_frames:.3f} ms a frame)")
+
+
 def phase_application(dev, results, ckpt):
     """Phase 6. Returns (ok, launches of the main run)."""
     from det_sam2_tpu_torch.app.video_processor import VideoProcessor
@@ -2095,6 +2231,7 @@ def phase_application(dev, results, ckpt):
         f"which the host's video-res mask resize {1e3 * rec['resize_s'] / st['frames_propagated']:.3f}"
         f" ({rec['resize_s'] / st['propagate_s']:.3f} of propagate_s, "
         f"{rec['resize_s'] / wall:.3f} of the stream)")
+    frame_prep_times(gpu, st, APP_FRAMES)
     ok &= check_segments(proc, APP_FRAMES, APP_HW)
     keep_n = proc.max_inference_state_frames + proc.frame_buffer_size
     rel = rec["releases"]
@@ -4450,7 +4587,7 @@ def main() -> int:
 
         ckpt = write_seeded_checkpoint(sam2_1_hiera_s(), work)
         t_phase = time.time()
-        ok_vp, predictor = phase_predictor(dev, results, work, ckpt)
+        ok_vp, predictor, exported = phase_predictor(dev, results, work, ckpt)
         ok &= ok_vp
         log(f"[time] phase 5 (video predictor) {time.time() - t_phase:.1f} s ({gpu_line()})")
         t_phase = time.time()
@@ -4488,6 +4625,7 @@ def main() -> int:
         log(f"[time] phase 11 (int8 trunk, YAML, sharded inference) "
             f"{time.time() - t_phase:.1f} s ({gpu_line()})")
     counts = {"serving": serving, "training": training, "predictor": predictor,
+              "export": exported,
               "application": application, "image": image, "http": http,
               "batched": batched, "trainer": trainer, "validate_jf": validate_jf,
               "int8_trunk": int8_trunk, "yaml": yaml_path, "object_sharded": object_sharded,
@@ -4497,7 +4635,8 @@ def main() -> int:
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
     for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                        ("predictor", serving_kernels), ("application", serving_kernels),
+                        ("predictor", serving_kernels), ("export", serving_kernels),
+                        ("application", serving_kernels),
                         ("image", ("flash_fwd",)), ("http", serving_kernels),
                         ("batched", serving_kernels),
                         ("trainer", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),

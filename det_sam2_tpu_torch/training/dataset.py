@@ -16,9 +16,8 @@ against cv2 5.0 in the CPU tests):
     frames as three fused multiply-adds over the four neighbours, rounded
     half to even; nearest masks at the coordinates rounded half to even;
     a constant-0 border;
-  * ``resize`` INTER_LINEAR on uint8: half-pixel centres, 11-bit weights,
-    the horizontal pass in integers, the vertical pass as cv2's SIMD
-    kernel computes it ((S >> 4) * w >> 16 per row, then (sum + 2) >> 2);
+  * ``resize`` INTER_LINEAR on uint8: ``utils.cv2_resize.resize_linear``,
+    which the frame preparation (``utils.misc.prepare_frame``) shares;
   * ``resize`` INTER_NEAREST: source index floor(dst * src / dst_size).
 The hue jitter (off in the MOSE recipe) still converts to HSV with cv2,
 imported when it runs; PIL decodes the image files, imported likewise.
@@ -33,10 +32,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from det_sam2_tpu_torch.modeling.layers import IMAGENET_MEAN, IMAGENET_STD
-
-IMG_MEAN = np.asarray(IMAGENET_MEAN, np.float32)
-IMG_STD = np.asarray(IMAGENET_STD, np.float32)
+from det_sam2_tpu_torch.utils.cv2_resize import _fma32, resize_linear
+from det_sam2_tpu_torch.utils.misc import IMG_MEAN, IMG_STD
 
 
 @dataclasses.dataclass
@@ -441,32 +438,6 @@ class EvalSampler:
 # ---------------------------------------------------------------------------
 
 
-def _fma32(a, b, c) -> np.ndarray:
-    """Correctly rounded float32 a * b + c (one rounding, as an FMA
-    instruction) of float32 arrays. The product of two float32 values is
-    exact in float64, so the float64 sum has one rounding; rounding that to
-    float32 differs from the single rounding only where the float64 sum
-    lands exactly halfway between two float32 values, and there the
-    float64 sum is rounded to odd first (with its exact error, TwoSum)."""
-    a = np.asarray(a, np.float32).astype(np.float64)
-    b, c = np.asarray(b, np.float32), np.asarray(c, np.float32)
-    s = a * b + c
-    low = s.view(np.uint64) & np.uint64(0x1FFFFFFF)
-    odd_case = low == np.uint64(0x10000000)
-    odd_case |= (np.abs(s) < 2.0 ** -100) & (s != 0)
-    if odd_case.any():
-        i = np.nonzero(odd_case)
-        p = np.broadcast_to(a * b, s.shape)[i]
-        cc = np.broadcast_to(c, s.shape)[i].astype(np.float64)
-        ss = s[i]
-        bb = ss - p
-        err = (p - (ss - bb)) + (cc - bb)
-        even = (ss.view(np.uint64) & 1) == 0
-        bump = (err != 0) & even
-        s[i] = np.where(bump, np.nextafter(ss, np.where(err > 0, np.inf, -np.inf)), ss)
-    return s.astype(np.float32)
-
-
 def rotation_matrix_2d(center: Tuple[float, float], angle: float,
                        scale: float) -> np.ndarray:
     """cv2.getRotationMatrix2D: the centre is a float32 point."""
@@ -534,41 +505,6 @@ class AffineWarp:
 
     def mask(self, msk: np.ndarray) -> np.ndarray:
         return self._source(msk).take(self._near, axis=0).reshape(msk.shape)
-
-
-def _linear_taps(dst: int, src: int):
-    """cv2.resize INTER_LINEAR's source index and 11-bit weights along one
-    axis (the scale as cv2 forms it, 1 / (dst / src); coordinates in
-    float32; past an edge the weight goes to the edge pixel)."""
-    scale = 1.0 / (dst / src)
-    f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f)
-    f = (f - s).astype(np.float32)
-    s = s.astype(np.int64)
-    f = np.where((s < 0) | (s >= src - 1), np.float32(0), f)
-    s = np.clip(s, 0, src - 1)
-    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int32)
-    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
-    return s, np.minimum(s + 1, src - 1), w0, w1
-
-
-def resize_linear(img: np.ndarray, size: int) -> np.ndarray:
-    """cv2.resize(img, (size, size)) of a uint8 [H, W, C] frame."""
-    h, w = img.shape[:2]
-    x0, x1, a0, a1 = _linear_taps(size, w)
-    src = img.astype(np.int32)
-    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    # the vertical pass as cv2's SIMD kernel rounds it
-    sy = ((np.arange(size, dtype=np.float64) + 0.5) * (1.0 / (size / h)) - 0.5
-          ).astype(np.float32)
-    y = np.floor(sy)
-    fy = (sy - y).astype(np.float32)
-    y = y.astype(np.int64)
-    b0 = np.rint((np.float32(1) - fy) * np.float32(2048)).astype(np.int32)[:, None, None]
-    b1 = np.rint(fy * np.float32(2048)).astype(np.int32)[:, None, None]
-    r0, r1 = rows[np.clip(y, 0, h - 1)] >> 4, rows[np.clip(y + 1, 0, h - 1)] >> 4
-    v = ((r0 * b0) >> 16) + ((r1 * b1) >> 16)
-    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def resize_nearest(msk: np.ndarray, size: int) -> np.ndarray:

@@ -1,12 +1,12 @@
 """Host-side frame I/O and mask utilities of the video predictor.
 
-The port's own copy of what the predictor uses from the JAX package's
-``utils/misc.py``, with no optional package on the ndarray frame path: those
-frames are resized with a torch bilinear on the CPU (half-pixel centres, no
-antialias, rounded to uint8) instead of cv2. PIL is imported only to decode
-image files, which it also resizes (as the JAX package does), and cv2 only to
-decode video files. Frames are stored as resized uint8 [image_size,
-image_size, 3]; the patch embed normalises them.
+The port's own copy of the JAX package's ``utils/misc.py``, with no optional
+package on the ndarray frame path: the JAX package resizes those frames with
+cv2, and the port computes cv2's arithmetic on the host without it
+(``utils.cv2_resize``), so both give the same bytes. PIL is imported only to
+decode image files, which it also resizes (as the JAX package does), and cv2
+only to decode video files. Frames are stored as resized uint8
+[image_size, image_size, 3]; the patch embed normalises them.
 """
 
 from __future__ import annotations
@@ -16,8 +16,12 @@ from typing import List, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
+from det_sam2_tpu_torch.modeling.layers import IMAGENET_MEAN, IMAGENET_STD
+from det_sam2_tpu_torch.utils.cv2_resize import resize_linear, resize_linear_float
+
+IMG_MEAN = np.asarray(IMAGENET_MEAN, np.float32)
+IMG_STD = np.asarray(IMAGENET_STD, np.float32)
 VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv")
 
 
@@ -40,19 +44,43 @@ def _load_image_file(path: str, image_size: int) -> Tuple[np.ndarray, int, int]:
 
 
 def prepare_frame(frame_rgb: np.ndarray, image_size: int) -> np.ndarray:
-    """One RGB frame [H, W, 3] -> resized uint8 [image_size, image_size, 3]:
-    bilinear with half-pixel centres and no antialias (cv2.resize's
-    INTER_LINEAR, within one level), rounded. Float frames are accepted in
-    [0, 1] or [0, 255]."""
+    """One RGB frame [H, W, 3] -> resized uint8 [image_size, image_size, 3],
+    equal to ``cv2.resize(frame, (image_size, image_size))`` as the JAX
+    package computes it (cv2's INTER_LINEAR, rebuilt without cv2). Float frames
+    are accepted in [0, 1] or [0, 255] and cast to uint8 first, as there; a
+    frame already at model size comes back as an equal copy."""
     if frame_rgb.dtype != np.uint8:
         frame_rgb = np.asarray(frame_rgb, np.float32)
         if frame_rgb.size and float(frame_rgb.max()) <= 1.0:
             frame_rgb = frame_rgb * 255.0
         frame_rgb = np.clip(frame_rgb, 0, 255).astype(np.uint8)
-    x = torch.tensor(frame_rgb).permute(2, 0, 1)[None]  # a copy: may be read-only
-    y = F.interpolate(x.float(), size=(image_size, image_size), mode="bilinear",
-                      align_corners=False)
-    return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+    if frame_rgb.shape[:2] == (image_size, image_size):
+        return np.array(frame_rgb)
+    return resize_linear(frame_rgb, image_size)
+
+
+def normalize_frame(frame_rgb: np.ndarray, image_size: int) -> np.ndarray:
+    """Resize and normalise on the host (fp32): ``prepare_frame``, / 255, then
+    the ImageNet mean and std. The predictor stores ``prepare_frame``'s uint8
+    and normalises on the device instead."""
+    img = prepare_frame(frame_rgb, image_size).astype(np.float32) / 255.0
+    return ((img - IMG_MEAN) / IMG_STD).astype(np.float32)
+
+
+def tensor_to_frame_rgb(
+    frame: np.ndarray,
+    original_size: Tuple[int, int] = (1920, 1080),
+) -> np.ndarray:
+    """A stored frame (resized uint8, or normalised float) [S, S, 3] -> uint8
+    RGB at the video's (W, H): the ImageNet normalisation undone, cv2's
+    float INTER_LINEAR resize (rebuilt in numpy), then * 255, clipped and
+    truncated, as the JAX package computes it."""
+    if frame.dtype == np.uint8:
+        img = frame.astype(np.float32) / 255.0
+    else:
+        img = frame.astype(np.float32) * IMG_STD + IMG_MEAN
+    img = resize_linear_float(img, original_size)
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
 
 
 def list_frame_dir(video_path: str) -> List[str]:

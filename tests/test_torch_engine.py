@@ -170,7 +170,7 @@ def test_port_imports_no_jax():
     mods = res.stdout.split()
     # every submodule, training/, utils/, app/, serving/, tools/ and
     # parallel/ too
-    assert len(mods) >= 65
+    assert len(mods) >= 68
     for m in ("utils.misc", "video_predictor", "build", "image_predictor",
               "automatic_mask_generator", "utils.amg", "utils.profiling",
               "app.detector", "app.rtsp", "app.video_processor", "app.postprocess",
@@ -181,7 +181,7 @@ def test_port_imports_no_jax():
               "tools.extract_frames", "tools.process_dataset", "training.dataset",
               "training.trainer", "training.checkpoint_utils", "training.launch",
               "parallel.mesh", "config_yaml", "ops.quant", "parallel.inference_sharding",
-              "parallel.spatial"):
+              "parallel.spatial", "export", "tools.download_ckpts", "utils.cv2_resize"):
         assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 

@@ -3,9 +3,9 @@ build_sam2) vs the JAX package's, on the same calls.
 
 Same weights as test_torch_video_predictor.py (tiny_test_config, seeded,
 object-score bias +1), both on the CPU in fp32 with TF32 off. The images are
-96x112, away from model size: JAX's image predictor resizes with cv2 where
-the port uses a torch bilinear (within one uint8 level), so JAX's is handed
-the port's prepare_frame, and JAX's host mask resize takes its numpy taps
+96x112, away from model size: JAX's image predictor resizes with cv2, and
+it is handed the port's prepare_frame (cv2's arithmetic in numpy, equal to
+it bit for bit), and JAX's host mask resize takes its numpy taps
 (the weights of the port's device resize, F.interpolate's bilinear) instead
 of cv2.resize. Tolerances: logits and IoU predictions within ATOL (the
 port's tests' fp32 parity tolerance), binary masks with IoU >= MIN_IOU where

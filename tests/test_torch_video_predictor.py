@@ -11,10 +11,10 @@ tracked frame for a third object (2 -> 4 slots), reverse propagation. Every
 yielded mask, the output stores, the bookkeeping and the bank are compared
 after each step.
 
-update_state's frames are resized on the host; JAX's loader resizes with cv2
-where the port uses a torch bilinear (within one uint8 level, see
-test_torch_video_predictor_memory.py), so both packages' loaders are handed
-the port's prepare_frame here and the model sees the same pixels.
+update_state's frames are resized on the host; JAX's loader resizes with cv2,
+and both packages' loaders are handed the port's prepare_frame here (cv2's
+arithmetic in numpy, equal to it bit for bit: test_torch_frame_prep.py), so
+the model sees the same pixels.
 
 The helpers below are shared with test_torch_video_predictor_prompts.py and
 test_torch_video_predictor_memory.py.

@@ -235,13 +235,13 @@ def test_load_video_frames_matches_jax(tmp_path):
 
 
 @pytest.mark.parametrize("hw", [(96, 112), (300, 200), (256, 256), (720, 1280)])
-def test_prepare_frame_within_one_level_of_cv2(hw):
+def test_prepare_frame_equals_cv2(hw):
     cv2 = pytest.importorskip("cv2")
     frame = make_frames(1, *hw, seed=7)[0]
     got = misc.prepare_frame(frame, 128)
     want = cv2.resize(frame, (128, 128))
     assert got.shape == want.shape == (128, 128, 3) and got.dtype == np.uint8
-    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    np.testing.assert_array_equal(got, want)
     # float frames in [0, 1] and [0, 255] give the uint8 frame's result
     np.testing.assert_array_equal(misc.prepare_frame(frame.astype(np.float32), 128), got)
     np.testing.assert_array_equal(misc.prepare_frame(frame / 255.0, 128), got)
