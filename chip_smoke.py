@@ -14,7 +14,18 @@ version; K3 launched twice must give the same bits. Planted faults (a
 skipped key tile, the consumer reading the wrong ring stage, a wrong slot,
 no RoPE correction, the pre-pass leaving out one tile's correction, dq
 without the delta term, dv from the wrong tile, K3's products in one TF32
-pass, ...) must fail the same check, K3's by at least 7x.
+pass, ...) must fail the same check, K3's by at least 7x. Last, the mask
+resize kernel (csrc/mask_resize.cu: cv2's INTER_LINEAR of mask logits, the
+bits of the JAX package's host resize_masks_np) bit for bit against its
+plain version (the port's host rebuild of cv2) at 2 masks 256^2 -> 720x1280
+(cv2's generic path), 3 -> 1080x1920 (IPP), 4 -> 2160x3840 (IPP's border
+rule), 1 -> 1024^2 and 192 -> 1024^2 (two groups of cv2 calls), and at the
+main paths' own calls: 4 masks to 720x1280 and to 1080x1920, 2 and 4 masks
+resized one a cv2 call (a prompt call's per-object resize), 1, 3 and 192
+masks to 720x1280; planted faults (the generic path with FMA contraction,
+the border rule off, a group on the wrong path, the default group where the
+caller asked for 1) must change the bits; times the kernel, the plain
+version on the host and F.interpolate's bilinear on the card.
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
@@ -40,14 +51,17 @@ by build_sam2_video_predictor from a seeded .pt (phase 2's weights), hiera-S
 (the window path), update_state, a new object mid-stream (2 -> 4 object
 slots), release_old_frames, a mask prompt and reverse propagation,
 remove_object, save_session / load_session_as_preload and tracking on the
-preload bank. Checks: every yielded mask finite at video size, the K1 / K2
-launches the session implies, no unpinned frame below the release point in
+preload bank. Checks: every yielded mask finite at video size, the K1 / K2 / mask_resize
+launches the session implies (mask_resize: one a prompt call, one a
+yielded frame), no unpinned frame below the release point in
 the bank and no growth of device memory across the release, the same session
 with every kernel's plain version (masks, pointers, memory cross-attention
-outputs at each K2 shape reached, every K2 call held in context), and an
+outputs at each K2 shape reached, every K2 call and the first calls of
+each mask_resize shape, per-object ones included, held in context), and an
 engine window against per-frame stream_steps leaving a bit-identical bank;
-prints window ms/frame, FPS, peak and released memory, and K2 / K1 at the
-new shapes against their plain versions. Last, the export round trip:
+prints window ms/frame, FPS, peak and released memory, the video-res
+resize of a frame through the card beside the host rebuild, and K2 / K1 at
+the new shapes against their plain versions. Last, the export round trip:
 export.save_torch_checkpoint of that bf16 predictor (fp32 on the CPU), the
 top-level det_sam2_tpu_torch.build_sam2_video_predictor from the file, and
 8 seeded 720x1280 frames with 2 box-prompted objects through both: masks
@@ -59,14 +73,18 @@ Phase 6 (the Det-SAM2 application): VideoProcessor at its defaults (buffer
 predictor over a seeded synthetic billiards stream (1080x1920, six pockets
 at the postprocessor's anchors, four moving balls, frames from a
 generator) with a synthetic detector reporting the true boxes: 240 frames,
-8 flushes. Checks: K1 / K2 launches as the schedule implies, allocated
+8 flushes. Checks: K1 / K2 / mask_resize launches as the schedule implies
+(a box prompt a ball a detect frame, each yielded frame), allocated
 device memory after each release flat from the third on (1 MiB slack),
 frames held bounded, a bool mask per ball per frame, the pockets collected,
-the balls prompted; then 90 frames with every K2 call held in context
+the balls prompted; then 90 frames with every K2 call and the first
+mask_resize calls of each shape (per-object ones included) held in context
 against a plain-kernel processor, a planted K2 fault that must fail, and
 DetSAM2Pipeline over 120 frames whose threaded postprocessor must equal a
 synchronous one over the segments it handed off. Prints ms/frame, FPS, the
-processor's stats, the host mask resize's share, peak and allocated memory,
+processor's stats, the video-res mask resize's share (upload, mask_resize,
+read-back) and a frame's resize beside the host rebuild, peak and allocated
+memory,
 and, not gated, prepare_frame's median host ms per frame at 720x1280 and
 1080x1920 -> 1024 beside the torch bilinear it replaced and the run's
 update_state_s.
@@ -75,8 +93,10 @@ seeded 720x1280 images: set_image and predict (box, clicks, mask input,
 multimask on and off), set_image_batch of 4 (one encode: K1 at [16, 4096,
 96]) and predict_batch, and SAM2AutomaticMaskGenerator with its defaults,
 with crop_n_layers=1 and with thresholds at 0; K1 launches 3 an encode
-call, every Hiera global K1 call held in context, features, masks and
-scores against a plain-kernel predictor, a planted K1 fault that must
+call, mask_resize one a predictor call (each AMG batch one), every Hiera
+global K1 call held in context, features, masks and
+scores against a plain-kernel predictor (the first mask_resize calls of
+each shape in its session held in context), a planted K1 fault that must
 fail. Prints ms per set_image and predict, s per AMG image, peak memory.
 Phase 8 (the HTTP server): the port's serving stack on phase 5's predictor
 (InferenceAPI, GraphQLAPI, make_handler on a ThreadingHTTPServer bound to
@@ -90,11 +110,12 @@ other; planned errors (unknown session, /frame, an undecodable upload, an
 unknown route); two sessions propagating at once from two client threads.
 Checks: every status, every mask decoded from the RLEs equal bit for bit to
 the same calls on the predictor in process, the concurrent propagations
-equal to serial ones, launches as the calls imply, grad mode off in every
+equal to serial ones, launches as the calls imply (mask_resize: one a
+prompt call, one a yielded frame), grad mode off in every
 engine call on a handler thread, allocated memory after a second round of
 sessions back within 1 MiB of the first round's. Prints round-trip ms by
-request kind, served ms/frame over HTTP and in process, the host resize's
-share, NDJSON bytes per frame, peak memory.
+request kind, served ms/frame over HTTP and in process, the video-res
+resize's share, NDJSON bytes per frame, peak memory.
 Phase 9 (the batched streamer): BatchedVideoStreamer on the same engine, 4
 seeded videos x 2 objects (8 object rows), videos 0-1 box-prompted at frame
 0 and 2-3 at frame 2 (so frame 2 skips for two videos only), two lockstep
@@ -214,6 +235,10 @@ K1_TPU = "det_sam2_tpu/ops/attention.py:48"
 K2_TPU = "det_sam2_tpu/ops/attention.py:448"
 K3A_TPU = "det_sam2_tpu/ops/attention.py:196"
 K3B_TPU = "det_sam2_tpu/ops/attention.py:248"
+MR_SRC = "det_sam2_tpu_torch/csrc/mask_resize.cu"
+# no TPU kernel: the JAX package resizes masks on the host with cv2, and the
+# kernel computes that function's bits
+MR_REPLACES = "det_sam2_tpu/utils/misc.py:218"
 
 
 def log(*a):
@@ -623,7 +648,151 @@ def phase_kernels(dev, results):
                     bound_scheme="memory: bytes / 3.35 TB/s", library_ms=None))
             del args, margs, kargs, q, mem_k, mem_v, out, ref, keys, keys_ref
             torch.cuda.empty_cache()
-    return ok & phase_backward_kernels(dev, results)
+    ok &= phase_backward_kernels(dev, results)
+    return ok & phase_mask_resize(dev, results)
+
+
+# (label, masks, 256^2 -> (H, W), masks a cv2 call (the group), the path
+# whose launches the row reports). The first five: cv2's generic path at 2
+# masks, IPP at 3, IPP's border rule at 4 masks on 4K video (7-8 clamped
+# columns a side), IPP at one channel, and 192 masks (64 AMG points x 3) as
+# two generic groups, 128 + 64. Then the main paths' own calls: phase 5's
+# 4 objects at 720x1280, phase 6's 4 balls at 1080x1920, a prompt call's
+# per-object resize (group 1: each row alone, IPP's one channel where 2 in
+# a group would be generic), and phase 7's 1, 3 and 192 masks at 720x1280
+MR_CASES = (
+    ("generic_2_masks_720p", 2, (720, 1280), 128, "predictor"),
+    ("ipp_3_masks_1080p", 3, (1080, 1920), 128, "application"),
+    ("ipp_border_4_masks_4k", 4, (2160, 3840), 128, "application"),
+    ("ipp_1_mask_1024", 1, (1024, 1024), 128, "image"),
+    ("generic_192_masks_1024", 192, (1024, 1024), 128, "image"),
+    ("ipp_4_masks_720p", 4, (720, 1280), 128, "predictor"),
+    ("ipp_4_masks_1080p", 4, (1080, 1920), 128, "application"),
+    ("per_object_2_masks_720p", 2, (720, 1280), 1, "predictor"),
+    ("per_object_4_masks_1080p", 4, (1080, 1920), 1, "application"),
+    ("ipp_1_mask_720p", 1, (720, 1280), 128, "image"),
+    ("ipp_3_masks_720p", 3, (720, 1280), 128, "image"),
+    ("generic_192_masks_720p", 192, (720, 1280), 128, "image"),
+)
+# planted fault -> the case that must catch it; the last is no kernel
+# fault but the wrapper called with the default group where the caller
+# asked for 1
+MR_FAULT_CASES = {"generic path compiled with FMA contraction": "generic_2_masks_720p",
+                  "IPP border rule off": "ipp_border_4_masks_4k",
+                  "first group on the wrong path": "generic_192_masks_1024",
+                  "group 128 in place of 1": "per_object_2_masks_720p"}
+# real calls of the predictors' resize held bit for bit against the plain
+# version, a (masks, h, w, H, W, group) key
+MR_HELD_PER_KEY = 2
+
+
+def _same_bits(a, b) -> bool:
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def phase_mask_resize(dev, results):
+    """The mask resize kernel against its plain version (the host rebuild
+    of cv2.resize) bit for bit at MR_CASES; planted faults must change the
+    bits. Times the kernel, the plain version on the host and
+    F.interpolate's bilinear on the card (nearly the same function, no bits
+    stated) as the library's yardstick."""
+    from det_sam2_tpu_torch.ops import mask_resize as mr
+
+    ok = True
+    for i, (label, n, hw, group, path) in enumerate(MR_CASES):
+        x_host = torch.from_numpy((np.random.default_rng(200 + i).standard_normal(
+            (n, 256, 256)) * 8).astype(np.float32))
+        x = x_host.to(dev)
+        out = mr.resize_masks_cv2(x, hw, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = mr.resize_masks_cv2_ref(x_host, hw, group)
+        plain = (time.perf_counter() - t0) * 1e3
+        got = out.cpu()
+        same = _same_bits(got, ref)
+        err = float((got - ref).abs().max())
+        ok &= same and bool(torch.isfinite(got).all())
+        for fault, case in MR_FAULT_CASES.items():
+            if case == label:
+                if fault in mr.FAULTS:
+                    bad = mr.resize_masks_cv2(x, hw, group, fault=mr.FAULTS[fault]).cpu()
+                else:
+                    bad = mr.resize_masks_cv2(x, hw).cpu()
+                caught = not _same_bits(bad, ref)
+                log(f"[faults] mask_resize {label}: planted '{fault}': "
+                    f"{int((bad != ref).sum())} values differ, max "
+                    f"{float((bad - ref).abs().max()):.3g} {'caught' if caught else 'MISSED'}")
+                ok &= caught
+                del bad
+        ms = time_ms(lambda: mr.resize_masks_cv2(x, hw, group), 20)
+        lib = time_ms(lambda: F.interpolate(x[:, None], size=hw, mode="bilinear",
+                                            align_corners=False), 20)
+        idx, wt = mr._device_taps((256, 256), hw, dev)
+        # 9 fp32 operations an output (two horizontal values, one vertical)
+        bnd, by = bound_ms(9.0 * out.numel(), nbytes(x, out, idx, wt), torch.float32)
+        log(f"[kernels] mask_resize {label}: {n} masks 256^2 -> {hw[0]}x{hw[1]}, group "
+            f"{group}, bit for bit {same} (max_abs_err {err:.3g}); ms {ms:.4f} plain_ms "
+            f"(host) {plain:.1f} interpolate_ms {lib:.4f} bound_ms {bnd:.4f} ({by}) "
+            f"{'OK' if same else 'FAIL'}")
+        results.append(dict(
+            name=f"mask_resize:{label}", route="cuda", source=MR_SRC, replaces=MR_REPLACES,
+            kernel="mask_resize", path=path, dtype="float32",
+            shape=dict(x=list(x.shape), out=list(out.shape), group=group), max_abs_err=err,
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            bound_scheme="memory: bytes / 3.35 TB/s", library_ms=lib))
+        del x, out, ref, got
+        torch.cuda.empty_cache()
+    return ok
+
+
+@contextlib.contextmanager
+def _mask_resize_held(per_key: int = MR_HELD_PER_KEY):
+    """Taps the resize_masks_cv2 that the video and image predictors call:
+    every call launches the kernel as before, and the first per_key calls
+    of each (masks, h, w, H, W, group) are held bit for bit against the
+    plain version on the same input. Yields the list of held calls."""
+    from det_sam2_tpu_torch import image_predictor, video_predictor
+    from det_sam2_tpu_torch.ops import mask_resize as mr
+    from det_sam2_tpu_torch.utils.cv2_resize import MASK_GROUP
+
+    held, seen = [], {}
+    kernel = mr.resize_masks_cv2
+
+    def tap(x, out_hw, group=MASK_GROUP):
+        out = kernel(x, out_hw, group=group)
+        key = (x[..., 0, 0].numel(), *x.shape[-2:], *map(int, out_hw), group)
+        if seen.get(key, 0) < per_key:
+            seen[key] = seen.get(key, 0) + 1
+            got, ref = out.cpu(), mr.resize_masks_cv2_ref(x.cpu(), out_hw, group)
+            held.append(dict(key=key, same=_same_bits(got, ref),
+                             differ=int((got != ref).sum()),
+                             varied=bool(x.amax() > x.amin())))
+        return out
+
+    mods = (video_predictor, image_predictor)
+    for m in mods:
+        m.resize_masks_cv2 = tap
+    try:
+        yield held
+    finally:
+        for m in mods:
+            m.resize_masks_cv2 = kernel
+
+
+def _mask_resize_held_ok(label, held, groups=(), masks=()) -> bool:
+    """The held resize calls all bit for bit, covering the groups and the
+    mask counts given with inputs that vary (a constant input, such as an
+    absent object's fill, is the same on every path)."""
+    keys = sorted({h["key"] for h in held})
+    varied = [h["key"] for h in held if h["varied"]]
+    covered = set(groups) <= {k[-1] for k in varied} and set(masks) <= {k[0] for k in varied}
+    good = bool(held) and all(h["same"] for h in held) and covered
+    log(f"[checks] {label}: {len(held)} mask_resize calls ({len(varied)} on varying "
+        f"logits) held bit for bit against the plain version on the same inputs, keys "
+        f"(masks, h, w, H, W, group) {keys}, values off "
+        f"{sum(h['differ'] for h in held)}; groups {sorted(groups)} and mask counts "
+        f"{sorted(masks)} covered on varying logits {covered} {'OK' if good else 'FAIL'}")
+    return good
 
 
 def _sdpa_backward(q, k, v, bias, dout, iters):
@@ -1430,6 +1599,10 @@ VP_K2_SHAPES = {(2, 8), (4, 9), (4, 8)}
 # the frames each propagate_in_video call of the session yields
 VP_CALLS = [list(range(24)), list(range(24, 48)), list(range(40, 32, -1)),
             list(range(48, 56))]
+# prompt calls of the session (three boxes, one mask): each consolidates its
+# frame at video size, one mask_resize launch for all its objects' rows; so
+# does each yielded frame
+VP_PROMPTS = 4
 
 
 def _rect(j, t):
@@ -1682,6 +1855,31 @@ def _timed_windows(eng, rec):
     eng.propagate_window = timed
 
 
+def _resize_ms(dev, masks, hw, n: int = 5) -> float:
+    """Host-clock ms of the predictor's video-res resize of masks (numpy
+    low-res logits): the upload, the mask_resize launch and the read-back,
+    as SAM2VideoPredictor._resize does them."""
+    from det_sam2_tpu_torch.ops.mask_resize import resize_masks_cv2
+    from det_sam2_tpu_torch.utils.misc import to_host
+
+    def run():
+        return to_host(resize_masks_cv2(torch.from_numpy(masks).to(dev), hw))[0]
+
+    run()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _host_ms(fn, *args, n: int = 3) -> float:
+    """Host-clock ms of fn(*args), the mean of n calls."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
 def write_seeded_checkpoint(cfg, workdir) -> str:
     """seeded_state_dict(cfg) saved as a SAM 2.1 .pt under workdir: the
     weights that every predictor phases 5-7 build from it loads."""
@@ -1747,7 +1945,8 @@ def export_round_trip(vp, work, gpu):
     n = len(want) - 1  # frame 0 is the cond frame
     implied = {"flash_fwd": ENCODE_K1 * len(want) + TRACK_K1 * n,
                "flash_banked_keys": TRACK_K2 * n, "flash_banked_fwd": TRACK_K2 * n,
-               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+               "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+               "mask_resize": 2 + len(want)}  # two box prompts, each yielded frame
     good = widened and same and launches == implied
     log(f"[export] ({gpu}) save_torch_checkpoint of phase 5's bf16 predictor: "
         f"{len(sd)} keys, all fp32 on the CPU: {widened}, {os.path.getsize(path) / 2 ** 20:.1f} "
@@ -1817,9 +2016,12 @@ def phase_predictor(dev, results, work, ckpt):
     # the checks' sessions: kernels with every K2 call held in context,
     # then every kernel replaced by its plain version
     keep = {}
-    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held):
+    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held), \
+            _mask_resize_held() as held_mr:
         rec_k = {}
         run_predictor_session(vp, video, video2, work, rec_k)
+    ok &= _mask_resize_held_ok("predictor, mask_resize in the session", held_mr,
+                               groups=(1, 128))
     ok_export, export_launches = export_round_trip(vp, work, gpu)
     ok &= ok_export
     del vp, eng
@@ -1844,31 +2046,31 @@ def phase_predictor(dev, results, work, ckpt):
             f"{c['cond_tiles']} attended cond tiles, {len(c['frames'])} frames yielded, "
             f"{n} run; engine window {ms / n:.3f} ms/frame ({1e3 * n / ms:.2f} FPS); "
             f"propagate_in_video {c['ms'] / len(c['frames']):.3f} ms/frame "
-            f"(download, stores, video-res resize on the host included)")
+            f"(download, stores, the video-res resize and its read-back included)")
     log(f"[predictor] ({gpu}) engine window over all {run} frames run: "
         f"{win_ms:.3f} ms/frame, FPS {1e3 / win_ms:.2f}")
     masks = np.random.default_rng(0).standard_normal((4, 1, 256, 256)).astype(np.float32)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        resize_masks_np(masks, VP_HW)
-    log(f"[predictor] ({gpu}) host part of propagate_in_video: resize_masks_np of one "
-        f"frame's 4 masks 256^2 -> {VP_HW[0]}x{VP_HW[1]} "
-        f"{(time.perf_counter() - t0) / 5 * 1e3:.2f} ms")
+    log(f"[predictor] ({gpu}) the video-res resize of one frame's 4 masks 256^2 -> "
+        f"{VP_HW[0]}x{VP_HW[1]}: {_resize_ms(dev, masks, VP_HW):.3f} ms through the card "
+        f"(upload, mask_resize, read-back), the host rebuild (resize_masks_np) "
+        f"{_host_ms(resize_masks_np, masks, VP_HW):.2f} ms")
     if len(rec["windows"]) != len(calls):
         log("[predictor] a propagation did not take the window path FAIL")
         ok = False
 
     enc = sum(e for _, e, _ in VP_EXPECTED)
     trk = sum(t for _, _, t in VP_EXPECTED)
+    yielded = sum(len(c) for c in VP_CALLS)
     want = {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
             "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "mask_resize": VP_PROMPTS + yielded}
     for step, e, t in VP_EXPECTED:
         log(f"[predictor]   expected: {step}: {e} encodes, {t} memory-conditioned frames")
     good = launches == want
     log(f"[predictor] ({gpu}) launches in the session {launches}, expected {want} "
         f"({enc} encodes x {ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, "
-        f"x {TRACK_K2} K2) {'OK' if good else 'FAIL'}")
+        f"x {TRACK_K2} K2; mask_resize: {VP_PROMPTS} prompt calls + {yielded} yielded "
+        f"frames) {'OK' if good else 'FAIL'}")
     ok &= good
 
     r = rec["released"]
@@ -2029,10 +2231,48 @@ def app_expected(n, buffer, interval, track):
     return enc, trk
 
 
+def _watch_video_res(rec):
+    """Count the video predictor's calls that resize masks to video size,
+    each one mask_resize launch: prompt calls (each consolidates its frame
+    at video size, one resize of its objects' rows) in rec["prompts"] and
+    the frames propagate_in_video yields (one resize each) in
+    rec["frames"]. Patches the class, so predictors made inside the
+    watched code count too. Returns a function that takes the watches off."""
+    import threading
+
+    from det_sam2_tpu_torch.video_predictor import SAM2VideoPredictor
+
+    store, propagate = SAM2VideoPredictor._store_temp, SAM2VideoPredictor.propagate_in_video
+    rec.update(prompts=0, frames=0)
+    lock = threading.Lock()  # the server calls from its handler threads
+
+    def add(key):
+        with lock:
+            rec[key] += 1
+
+    def counted_store(self, *a, **kw):
+        add("prompts")
+        return store(self, *a, **kw)
+
+    def counted_propagate(self, *a, **kw):
+        for item in propagate(self, *a, **kw):
+            add("frames")
+            yield item
+
+    SAM2VideoPredictor._store_temp = counted_store
+    SAM2VideoPredictor.propagate_in_video = counted_propagate
+
+    def unwatch():
+        SAM2VideoPredictor._store_temp = store
+        SAM2VideoPredictor.propagate_in_video = propagate
+    return unwatch
+
+
 def watch_application(proc, rec):
     """Record around each release_old_frames of proc's predictor the frames
     the session holds (host and device) and, after it, the device memory
-    allocated; time the host's video-resolution mask resize."""
+    allocated; time the video-resolution mask resize (upload, mask_resize,
+    read-back)."""
     vp = proc.predictor
     release, resize = vp.release_old_frames, vp._video_res_masks
     dev = vp.engine.device
@@ -2206,16 +2446,20 @@ def phase_application(dev, results, ckpt):
     eng = vp.engine
     ok = True
 
-    # the user's path at VideoProcessor's defaults (the host's mask resize)
+    # the user's path at VideoProcessor's defaults (mask_resize="host": cv2's bits)
     proc = VideoProcessor(vp, billiards_detector(APP_FRAMES, 0, APP_HW))
     rec = {}
     watch_application(proc, rec)
+    unwatch = _watch_video_res(rec)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     att.reset_launch_counts()
     t0 = time.perf_counter()
-    proc.run(billiards_frames(APP_FRAMES, 0, APP_HW))
-    torch.cuda.synchronize()
+    try:
+        proc.run(billiards_frames(APP_FRAMES, 0, APP_HW))
+        torch.cuda.synchronize()
+    finally:
+        unwatch()
     wall = time.perf_counter() - t0
     launches = dict(att.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -2228,9 +2472,18 @@ def phase_application(dev, results, ckpt):
         f"({APP_FRAMES / wall:.2f} FPS); peak_mem {peak / 2 ** 30:.3f} GiB")
     log(f"[application] ({gpu}) stats {json.dumps(st)}; propagate "
         f"{1e3 * st['propagate_s'] / st['frames_propagated']:.3f} ms per propagated frame, of "
-        f"which the host's video-res mask resize {1e3 * rec['resize_s'] / st['frames_propagated']:.3f}"
+        f"which the video-res mask resize (upload, mask_resize, read-back) "
+        f"{1e3 * rec['resize_s'] / st['frames_propagated']:.3f}"
         f" ({rec['resize_s'] / st['propagate_s']:.3f} of propagate_s, "
         f"{rec['resize_s'] / wall:.3f} of the stream)")
+    from det_sam2_tpu_torch.utils.misc import resize_masks_np
+
+    masks = np.random.default_rng(0).standard_normal((len(BALLS), 1, 256, 256)).astype(
+        np.float32)
+    log(f"[application] ({gpu}) one frame's {len(BALLS)} masks 256^2 -> {APP_HW[0]}x"
+        f"{APP_HW[1]}: {_resize_ms(dev, masks, APP_HW):.3f} ms through the card (upload, "
+        f"mask_resize, read-back), the host rebuild (resize_masks_np) "
+        f"{_host_ms(resize_masks_np, masks, APP_HW):.2f} ms")
     frame_prep_times(gpu, st, APP_FRAMES)
     ok &= check_segments(proc, APP_FRAMES, APP_HW)
     keep_n = proc.max_inference_state_frames + proc.frame_buffer_size
@@ -2250,28 +2503,36 @@ def phase_application(dev, results, ckpt):
     ok &= good
     enc, trk = app_expected(APP_FRAMES, proc.frame_buffer_size, proc.detect_interval,
                             proc.max_frame_num_to_track)
+    # a box prompt a ball on every detect frame, then each yielded frame
+    prompts = len(range(0, APP_FRAMES, proc.detect_interval)) * len(BALLS)
     want = {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
             "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    good = launches == want
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "mask_resize": prompts + st["frames_propagated"]}
+    good = (launches == want and rec["prompts"] == prompts
+            and rec["frames"] == st["frames_propagated"])
     log(f"[application] ({gpu}) launches {launches}, expected {want} ({enc} encodes x "
-        f"{ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, x {TRACK_K2} K2) "
+        f"{ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, x {TRACK_K2} K2; "
+        f"mask_resize: {prompts} box prompts + {st['frames_propagated']} yielded frames; "
+        f"the predictor saw {rec['prompts']} prompt calls, yielded {rec['frames']} frames) "
         f"{'OK' if good else 'FAIL'}")
     ok &= good
     del proc
 
-    # the checks: kernels with every K2 call held in context, every kernel
-    # replaced by its plain version, a planted K2 fault; the video-res
-    # resize on the card (mask_resize="device") in these passes, whose
-    # subject is the kernels
+    # the checks: kernels with every K2 call and a sample of the
+    # mask_resize calls (the prompts' per-object ones included) held in
+    # context, every attention kernel replaced by its plain version, a
+    # planted K2 fault; each pass at VideoProcessor's defaults
     def processor(engine, n):
-        return VideoProcessor(SAM2VideoPredictor(engine, mask_resize="device"),
-                              billiards_detector(n, 0, APP_HW))
+        return VideoProcessor(SAM2VideoPredictor(engine), billiards_detector(n, 0, APP_HW))
 
     keep = {}
-    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held_k):
+    with _tapped(eng, check=True, keep=keep) as (taps, shapes, held_k), \
+            _mask_resize_held() as held_mr:
         kern = processor(eng, APP_CHECK)
         kern.run(billiards_frames(APP_CHECK, 0, APP_HW))
+    ok &= _mask_resize_held_ok("application, mask_resize in the kernels' pass", held_mr,
+                               groups=(1, 128), masks=(len(BALLS),))
     plain_eng = build_sam2_engine(cfg, ckpt, plain_kernels=True)
     with _tapped(plain_eng) as (plain_taps, plain_shapes, _):
         plain = processor(plain_eng, APP_CHECK)
@@ -2524,6 +2785,20 @@ def _amg_close(label, ref, got) -> bool:
     return good
 
 
+def amg_resizes(pred, kw, hw) -> int:
+    """The predictor calls (each one mask_resize launch) that an AMG run
+    with arguments kw makes on an image of size hw: one predict_batch a
+    batch of points_per_batch points of each crop's grid."""
+    from det_sam2_tpu_torch.automatic_mask_generator import SAM2AutomaticMaskGenerator
+    from det_sam2_tpu_torch.utils.amg import generate_crop_boxes
+
+    amg = SAM2AutomaticMaskGenerator(pred, **kw)
+    if amg.use_m2m:
+        raise ValueError("the m2m refinement adds predictor calls a batch")
+    _, layers = generate_crop_boxes(hw, amg.crop_n_layers, amg.crop_overlap_ratio)
+    return sum(-(-len(amg.point_grids[layer]) // amg.points_per_batch) for layer in layers)
+
+
 def check_image_outputs(rec, hw) -> bool:
     """Shapes and finite values of every output; AMG records well formed."""
     want = {"predict box, multimask": (3,) + hw, "predict 3 clicks, single mask": (1,) + hw,
@@ -2579,19 +2854,30 @@ def phase_image(dev, results, ckpt):
     # set_image and set_image_batch of IMG_BATCH twice each, one encode an
     # AMG run (crop_n_layers=1: its 5 crops in one set_image_batch)
     want_enc = [1, 1, IMG_BATCH, IMG_BATCH, 1, 5, 1]
+    # one mask_resize a predictor call: the predict calls, predict_batch
+    # (one call an image), each AMG batch
+    amg_calls = {label: amg_resizes(pred, kw, IMG_HW) for label, kw in AMG_RUNS.items()}
+    resizes = len(image_calls(IMG_HW)) + IMG_BATCH + sum(amg_calls.values())
     want = {"flash_fwd": ENCODE_K1 * len(encodes), "flash_banked_keys": 0,
-            "flash_banked_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_banked_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "mask_resize": resizes}
     good = launches == want and encodes == want_enc
     log(f"[image] ({gpu}) encode calls (images each) {encodes}, expected {want_enc}; "
-        f"launches {launches}, expected {want} ({ENCODE_K1} K1 an encode call) "
-        f"{'OK' if good else 'FAIL'}")
+        f"launches {launches}, expected {want} ({ENCODE_K1} K1 an encode call; mask_resize: "
+        f"{len(image_calls(IMG_HW))} predict calls + {IMG_BATCH} of predict_batch + AMG "
+        f"batches {amg_calls}) {'OK' if good else 'FAIL'}")
     ok &= good
     ok &= _held_in_context("image encoder, kernels", held, "Hiera global attention calls")
 
+    # the plain attention's session, a sample of its mask_resize calls
+    # held in context (predict, predict_batch, the AMG's batches)
     plain_pred = build_sam2(cfg, ckpt, plain_kernels=True)
     rec_p = {}
-    run_image_session(plain_pred, images, rec_p, amg=False)
+    with _mask_resize_held() as held_mr:
+        run_image_session(plain_pred, images, rec_p, amg=False)
     del plain_pred
+    ok &= _mask_resize_held_ok("image, mask_resize in the plain attention's session",
+                               held_mr, masks=(1, 3, 192))
     ok &= _features_close("set_image: plain kernels vs kernels", rec_p["features"],
                           rec["features"])
     ok &= _features_close("set_image_batch: plain kernels vs kernels",
@@ -2942,10 +3228,13 @@ def _watch_engine(eng, rec):
 
 
 def _implied(rec):
+    """The launches that _watch_engine's and _watch_video_res's counts
+    imply."""
     enc, trk = rec["encodes"], rec["conditioned"]
     return {"flash_fwd": ENCODE_K1 * enc + TRACK_K1 * trk,
             "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "mask_resize": rec["prompts"] + rec["frames"]}
 
 
 def _concurrent(cli, sids, n):
@@ -2991,9 +3280,9 @@ def phase_http(dev, results, ckpt, work):
     resize_s = [0.0]
     resize = vp._resize
 
-    def timed_resize(*a):
+    def timed_resize(*a, **kw):
         t0 = time.perf_counter()
-        out = resize(*a)
+        out = resize(*a, **kw)
         resize_s[0] += time.perf_counter() - t0
         return out
     vp._resize = timed_resize
@@ -3021,6 +3310,7 @@ def phase_http(dev, results, ckpt, work):
     api._rle_masks = recorded
     watch = {}
     unwatch = _watch_engine(eng, watch)
+    unwatch_resizes = _watch_video_res(watch)
     att.reset_launch_counts()
     try:
         # round 1: session A over REST, B over GraphQL, a concurrent pair
@@ -3103,6 +3393,7 @@ def phase_http(dev, results, ckpt, work):
         mem2, live2 = torch.cuda.memory_allocated(), live_bytes()
     finally:
         unwatch()
+        unwatch_resizes()
         del api._rle_masks
         srv.shutdown()
         srv.server_close()
@@ -3188,7 +3479,7 @@ def phase_http(dev, results, ckpt, work):
     log(f"[http] ({gpu}) served propagate_in_video over HTTP {http_ms:.3f} ms/frame "
         f"({n_served} frames, session A); in process {direct_ms:.3f} ms/frame (the same "
         f"calls); difference (RLE, JSON, socket) {http_ms - direct_ms:+.3f} ms/frame; the "
-        f"host's video-res resize (in process, whole script) "
+        f"video-res resize with its read-back (in process, whole script) "
         f"{1e3 * direct_resize / n_direct:.3f} ms a yielded frame "
         f"({1e3 * direct_resize / n_direct / http_ms:.3f} of the served ms/frame); NDJSON "
         f"{sum(b for _, b, _ in served) / n_served:.0f} bytes/frame")
@@ -3372,7 +3663,8 @@ def phase_batched(dev, results, eng, ckpt):
     st, outs = run_batched(eng, frames, rec)
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_fwd": steps * (ENCODE_K1 + TRACK_K1), "flash_banked_keys": steps * TRACK_K2,
-            "flash_banked_fwd": steps * TRACK_K2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_banked_fwd": steps * TRACK_K2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "mask_resize": 0}
     launches = rec["launches"]
     good = launches == want
     log(f"[batched] ({gpu}) launches over {steps} lockstep steps {launches}, expected "
@@ -3894,6 +4186,7 @@ def phase_trainer(dev, results, work, gate, bare_ms):
                                        for j in range(3)}) for v in jf_data.videos]
         watch = {}
         unwatch = _watch_engine(eng, watch)
+        unwatch_resizes = _watch_video_res(watch)
         keep = {}
         trainer.model.train()
         torch.cuda.synchronize()
@@ -3905,6 +4198,7 @@ def phase_trainer(dev, results, work, gate, bare_ms):
             torch.cuda.synchronize()
         finally:
             unwatch()
+            unwatch_resizes()
         jf_s = time.perf_counter() - t0
         jf_launches = dict(att.LAUNCHES)
         implied = _implied(watch)
@@ -4107,7 +4401,7 @@ def phase_int8(dev, results, ckpt):
     per_frame = {k: (launches[k] - init_counts[k]) / INT8_STEPS for k in launches}
     step_ms = {k: float(np.mean(v[N_WARM:])) for k, v in timings.items()}
     want = {"flash_fwd": 7.0, "flash_banked_keys": 4.0, "flash_banked_fwd": 4.0,
-            "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+            "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "mask_resize": 0.0}
     good = per_frame == want and products == 64 * (INT8_STEPS + 1)
     log(f"[int8] ({gpu}) {INT8_STEPS} stream_steps, 2 objects, banked: int8 trunk "
         f"{step_ms['int8']:.3f} ms/frame, bf16 {step_ms['bf16']:.3f} ms/frame (mean of steps "
@@ -4426,7 +4720,7 @@ def phase_sharded(dev, results, ckpt, work):
     log(f"[shard] {SHARD_WORLD} gloo processes on card 0: {time.perf_counter() - t0:.1f} s "
         f"(start-up, engine build and both modes)")
     zero = {k: 0 for k in ("flash_fwd", "flash_banked_keys", "flash_banked_fwd",
-                           "flash_bwd_dq", "flash_bwd_dkv")}
+                           "flash_bwd_dq", "flash_bwd_dkv", "mask_resize")}
     if ranks is None:
         return False, zero, zero
     log(f"[shard] gloo collectives on card 0 (torch {torch.__version__}): "
@@ -4546,6 +4840,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.ops import mask_resize  # noqa: F401 (registers its kernel)
 
     t0 = time.time()
     paths = att.build_kernels()
@@ -4633,15 +4928,17 @@ def main() -> int:
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
     serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
+    # the paths that hand out masks at video or image size resize them too
+    predictor_kernels = serving_kernels + ("mask_resize",)
     for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                        ("predictor", serving_kernels), ("export", serving_kernels),
-                        ("application", serving_kernels),
-                        ("image", ("flash_fwd",)), ("http", serving_kernels),
+                        ("predictor", predictor_kernels), ("export", predictor_kernels),
+                        ("application", predictor_kernels),
+                        ("image", ("flash_fwd", "mask_resize")), ("http", predictor_kernels),
                         ("batched", serving_kernels),
                         ("trainer", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-                        ("validate_jf", serving_kernels),
-                        ("int8_trunk", serving_kernels), ("yaml", serving_kernels),
+                        ("validate_jf", predictor_kernels),
+                        ("int8_trunk", serving_kernels), ("yaml", predictor_kernels),
                         ("object_sharded", ("flash_fwd",)), ("spatial", ("flash_fwd",))):
         for name in names:
             if counts[path][name] <= 0:

@@ -7,9 +7,10 @@ batched encoder calls, predict / predict_batch encode point, box and mask
 prompts and return numpy masks at the original image resolution. Runs on
 its engine's device (CUDA unless the engine was built on the CPU).
 
-The resize to the original resolution runs on the engine's device
-(F.interpolate's bilinear: the weights of the JAX package's host
-``resize_masks_np``), and a call reads its outputs back once; the optional
+The resize to the original resolution runs on the engine's device and
+gives the bits of the JAX package's host ``resize_masks_np``, which is
+cv2.resize (``ops.mask_resize``: the hand-written kernel on CUDA, the numpy
+rebuild on the CPU); a call reads its outputs back once; the optional
 hole / sprinkle cleanup labels the low-res logits on the host
 (``fill_holes_and_sprinkles_np``), which takes one read-back more.
 """
@@ -21,8 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from det_sam2_tpu_torch.modeling.sam2_base import resize_bilinear
 from det_sam2_tpu_torch.ops.connected_components import fill_holes_and_sprinkles_np
+from det_sam2_tpu_torch.ops.mask_resize import resize_masks_cv2
 from det_sam2_tpu_torch.track import SAM2Engine
 from det_sam2_tpu_torch.utils.misc import prepare_frame, to_host
 
@@ -251,16 +252,18 @@ class SAM2ImagePredictor:
         the low-res logits on the host). The optional hole / sprinkle
         cleanup runs on the LOW-RES logits before the resize, as SAM 2 does:
         the areas are low-res pixels and the +-10 patches are smoothed by
-        the bilinear upscale; the low-res logits returned are the raw ones."""
+        the bilinear upscale; the low-res logits returned are the raw ones.
+        The masks of all prompts resize as one cv2 image of B * M channels,
+        128 at a time, as the JAX package resizes them."""
         if self.max_hole_area > 0 or self.max_sprinkle_area > 0:
             (low_np,) = to_host(low_res)
             filled = torch.from_numpy(fill_holes_and_sprinkles_np(
                 low_np, self.mask_threshold, self.max_hole_area,
                 self.max_sprinkle_area)).to(low_res.device)
-            masks, ious_np = to_host(resize_bilinear(filled, self._orig_hw), ious)
+            masks, ious_np = to_host(resize_masks_cv2(filled, self._orig_hw), ious)
         else:
             masks, ious_np, low_np = to_host(
-                resize_bilinear(low_res, self._orig_hw), ious, low_res)
+                resize_masks_cv2(low_res, self._orig_hw), ious, low_res)
         if not return_logits:
             masks = masks > self.mask_threshold
         return masks, ious_np, low_np

@@ -20,7 +20,8 @@ only and refuses a gradient, as in JAX.
 Beside each kernel is its plain PyTorch version (``*_ref``) with the same
 signature. A wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches the kernel or raises. Each launch adds one to
-``LAUNCHES[name]``.
+``LAUNCHES[name]``. Another module's kernel joins the same build, loading
+and counts through ``register_kernel`` (``ops/mask_resize.py``).
 
 The kernels are compiled at first use by ``nvcc`` into ``build/kernels/`` at
 the repository root (git-ignored), one shared library per source with a
@@ -77,6 +78,14 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def register_kernel(name: str, argtypes) -> None:
+    """Add the kernel of csrc/<name>.cu, whose C entry <name> takes
+    argtypes and returns a CUDA error code, to the build, the loading and
+    ``LAUNCHES``; ``launch(name, ...)`` then runs it."""
+    _ARGTYPES[name] = list(argtypes)
+    LAUNCHES.setdefault(name, 0)
+
+
 # ---------------------------------------------------------------------------
 # build + load
 # ---------------------------------------------------------------------------
@@ -98,11 +107,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_kernels(names=tuple(LAUNCHES)) -> Dict[str, Path]:
-    """Compile every named kernel that is not built yet, one nvcc process per
-    source, all started together. The compiler's report (registers, shared
-    memory, spills from -Xptxas=-v) is kept beside each library as .log.
-    Raises with the compiler's output if a build fails."""
+def build_kernels(names=None) -> Dict[str, Path]:
+    """Compile every named kernel (default: every one registered) that is
+    not built yet, one nvcc process per source, all started together. The
+    compiler's report (registers, shared memory, spills from -Xptxas=-v) is
+    kept beside each library as .log. Raises with the compiler's output if
+    a build fails."""
+    names = tuple(LAUNCHES) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -165,7 +176,9 @@ _ERRORS = {20000: "no driver entry point for cuTensorMapEncodeTiled",
            20001: "the tiles of this shape do not fit in shared memory"}
 
 
-def _launch(name: str, *args) -> None:
+def launch(name: str, *args) -> None:
+    """Run kernel name's C entry with args, raise on its error code, and
+    count the launch."""
     err = getattr(_lib(name), name)(*args)
     if err != 0:
         what = _ERRORS.get(err, f"CUDA error {err}")
@@ -229,7 +242,7 @@ def flash_attention_fwd(
         bias = _ready(bias, torch.float32, q.device)
     out = torch.empty((bh, nq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, nq), dtype=torch.float32, device=q.device)
-    _launch(
+    launch(
         "flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         lse.data_ptr(), bh, nq, nk, d, dv, code, 1.0 / d ** 0.5, fault,
@@ -347,8 +360,8 @@ def flash_bwd_dq(q, k, v, bias, dout, lse, delta, fault: int = 0) -> torch.Tenso
         return _bwd_ref(q, k, v, bias, lse, dout, delta)[0]
     ptrs, dims, keep = _bwd_args(q, k, v, bias, dout, lse, delta)
     dq = torch.empty_like(keep[0])
-    _launch("flash_bwd_dq", *ptrs, dq.data_ptr(), *dims, fault,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    launch("flash_bwd_dq", *ptrs, dq.data_ptr(), *dims, fault,
+           torch.cuda.current_stream(q.device).cuda_stream)
     return dq
 
 
@@ -361,8 +374,8 @@ def flash_bwd_dkv(q, k, v, bias, dout, lse, delta,
         return _bwd_ref(q, k, v, bias, lse, dout, delta)[1:]
     ptrs, dims, keep = _bwd_args(q, k, v, bias, dout, lse, delta)
     dk, dv = torch.empty_like(keep[1]), torch.empty_like(keep[2])
-    _launch("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, fault,
-            torch.cuda.current_stream(q.device).cuda_stream)
+    launch("flash_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(), *dims, fault,
+           torch.cuda.current_stream(q.device).cuda_stream)
     return dk, dv
 
 
@@ -509,7 +522,7 @@ def flash_banked_keys(mem_k, slots, w, cos, sin, layer: int,
     slots = _ready(slots.to(torch.int32), torch.int32, dev)
     w, cos, sin = (_ready(x.float(), torch.float32, dev) for x in (w, cos, sin))
     keys = torch.empty((b, t * s_pad, d), dtype=mem_k.dtype, device=dev)
-    _launch(
+    launch(
         "flash_banked_keys", mem_k.data_ptr(), slots.data_ptr(), w.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), keys.data_ptr(), b, d, ktot, nl, s, s_pad,
         t, layer, code, torch.cuda.current_stream(dev).cuda_stream,
@@ -559,7 +572,7 @@ def flash_banked_attend(q, keys, mem_v, slots, bias) -> torch.Tensor:
     slots = _ready(slots.to(torch.int32), torch.int32, dev)
     bias = _ready(bias.float(), torch.float32, dev)
     out = torch.empty((b, nq, cm), dtype=q.dtype, device=dev)
-    _launch(
+    launch(
         "flash_banked_fwd", q.data_ptr(), keys.data_ptr(), mem_v.data_ptr(),
         slots.data_ptr(), bias.data_ptr(), out.data_ptr(), b, nq, d, cm, ktot,
         s, s_pad, t, code, 1.0 / d ** 0.5,

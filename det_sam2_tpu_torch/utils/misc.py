@@ -18,7 +18,12 @@ import numpy as np
 import torch
 
 from det_sam2_tpu_torch.modeling.layers import IMAGENET_MEAN, IMAGENET_STD
-from det_sam2_tpu_torch.utils.cv2_resize import resize_linear, resize_linear_float
+from det_sam2_tpu_torch.utils.cv2_resize import (
+    MASK_GROUP,
+    resize_chw,
+    resize_linear,
+    resize_linear_float,
+)
 
 IMG_MEAN = np.asarray(IMAGENET_MEAN, np.float32)
 IMG_STD = np.asarray(IMAGENET_STD, np.float32)
@@ -201,62 +206,26 @@ def concat_points(old, points: np.ndarray, labels: np.ndarray):
     }
 
 
-def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
-    """1-D bilinear resize matrix [out_size, in_size] of
-    F.interpolate(mode="bilinear", align_corners=False), no antialias."""
-    w = np.zeros((out_size, in_size), dtype=np.float64)
-    if in_size == out_size:
-        np.fill_diagonal(w, 1.0)
-        return w.astype(np.float32)
-    scale = in_size / out_size
-    for i in range(out_size):
-        center = (i + 0.5) * scale - 0.5
-        xs = int(np.floor(center)) + np.arange(2, dtype=np.float64)
-        ws = np.clip(1.0 - np.abs(xs - center), 0.0, None)
-        s = ws.sum()
-        if s != 0:
-            ws = ws / s
-        for t in range(2):
-            w[i, int(np.clip(xs[t], 0, in_size - 1))] += ws[t]
-    return w.astype(np.float32)
-
-
-_RESIZE_TAPS: dict = {}
-
-
-def _bilinear_taps(src: int, dst: int):
-    """(i0, i1, w0, w1) per output position: bilinear rows have at most two
-    nonzero weights."""
-    key = (src, dst)
-    taps = _RESIZE_TAPS.get(key)
-    if taps is None:
-        w = _bilinear_weights(src, dst)  # [dst, src]
-        order = np.argsort(-w, axis=1)[:, :2]
-        i0, i1 = order[:, 0], order[:, 1]
-        rows = np.arange(dst)
-        taps = (
-            i0, i1,
-            w[rows, i0].astype(np.float32)[:, None],
-            w[rows, i1].astype(np.float32)[:, None],
-        )
-        _RESIZE_TAPS[key] = taps
-    return taps
-
-
-def resize_masks_np(masks: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """Host bilinear resize (align_corners=False) of mask logits [..., h, w]
-    -> [..., H, W]: a separable 2-tap gather with F.interpolate's weights."""
+def resize_masks_np(masks: np.ndarray, out_hw: Tuple[int, int],
+                    group: int = MASK_GROUP) -> np.ndarray:
+    """Host resize of mask logits [..., h, w] -> [..., H, W] float32, equal
+    to the JAX package's ``resize_masks_np`` with cv2 present: the masks go
+    through cv2's channel axis ``group`` (128) at a time, and each group
+    takes the path cv2 takes at its channel count (IPP at 1, 3 or 4, the
+    generic float INTER_LINEAR otherwise), rebuilt without cv2
+    (``utils.cv2_resize``). group=1 is one cv2 call a mask, as the JAX
+    predictor resizes each object's row when it consolidates a frame."""
     h, w = masks.shape[-2:]
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):
         return masks
     lead = masks.shape[:-2]
-    flat = masks.reshape(-1, h, w).astype(np.float32)
-    j0, j1, v0, v1 = _bilinear_taps(w, ow)
-    x = flat[:, :, j0] * v0[:, 0] + flat[:, :, j1] * v1[:, 0]
-    i0, i1, u0, u1 = _bilinear_taps(h, oh)
-    out = x[:, i0, :] * u0 + x[:, i1, :] * u1
-    return out.reshape(*lead, oh, ow)
+    flat = np.ascontiguousarray(masks, np.float32).reshape(-1, h, w)
+    flat = torch.from_numpy(flat if flat.flags.writeable else flat.copy())
+    out = torch.empty((flat.shape[0], oh, ow), dtype=torch.float32)
+    for i in range(0, flat.shape[0], group):
+        resize_chw(flat[i:i + group], out[i:i + group])
+    return out.numpy().reshape(*lead, oh, ow)
 
 
 class AsyncFrameLoader:

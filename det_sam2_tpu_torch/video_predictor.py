@@ -38,13 +38,14 @@ from det_sam2_tpu_torch.modeling.sam2_base import (
     apply_non_overlapping_constraints,
     resize_bilinear,
 )
+from det_sam2_tpu_torch.ops.mask_resize import resize_masks_cv2
 from det_sam2_tpu_torch.track import SAM2Engine
+from det_sam2_tpu_torch.utils.cv2_resize import MASK_GROUP
 from det_sam2_tpu_torch.utils.misc import (
     AsyncFrameLoader,
     concat_points,
     list_frame_dir,
     load_video_frames,
-    resize_masks_np,
     to_host,
 )
 
@@ -185,10 +186,14 @@ class SAM2VideoPredictor:
         clear_non_cond_mem_for_multi_obj: bool = False,
         add_all_frames_to_correct_as_cond: bool = False,
         max_update_length_for_new_obj_id: int = 100,
-        mask_resize: str = "host",  # 'host' (numpy) | 'device'
+        mask_resize: str = "host",  # 'host' (cv2's bits) | 'device'
     ):
         """The predictor runs on the engine's device (the engine defaults
-        to CUDA)."""
+        to CUDA). mask_resize names the JAX package's two ways to resize
+        masks to video resolution: "host" is its cv2.resize, whose bits the
+        port computes on the engine's device (``ops.mask_resize``: the
+        hand-written kernel on CUDA, the numpy rebuild on the CPU); "device"
+        is its on-device bilinear (F.interpolate's weights)."""
         self.engine = engine
         self.cfg = engine.cfg
         self.image_size = engine.cfg.image_size
@@ -392,9 +397,13 @@ class SAM2VideoPredictor:
                         True)
         return None, False
 
-    def _resize(self, masks: np.ndarray, hw) -> np.ndarray:
+    def _resize(self, masks: np.ndarray, hw, group: int = MASK_GROUP) -> np.ndarray:
+        """Masks [..., h, w] -> [..., H, W] on the engine's device, read back
+        once; group: the masks of one cv2 call in the JAX package ("host":
+        cv2 picks its arithmetic by that channel count)."""
         if self.mask_resize == "host":
-            return resize_masks_np(masks, hw)
+            x = torch.from_numpy(np.ascontiguousarray(masks, np.float32))
+            return to_host(resize_masks_cv2(x.to(self.engine.device), hw, group=group))[0]
         return to_host(self.engine.resize_masks(masks, hw))[0]
 
     def _consolidate(
@@ -418,6 +427,7 @@ class SAM2VideoPredictor:
         scores = np.full((o, 1), 10.0, np.float32)
         valid = np.zeros(o, bool)
 
+        to_resize = {}
         for obj_idx in sorted(session.obj_idx_to_id):
             row, found = self._lookup_output_row(session, obj_idx, frame_idx)
             if not found:
@@ -426,11 +436,18 @@ class SAM2VideoPredictor:
                 continue
             m = np.asarray(row["pred_masks"], np.float32)
             if m.shape[-2:] != (h, w):
-                m = self._resize(m, (h, w))
-            masks[obj_idx] = m[0]
+                to_resize[obj_idx] = m[0]
+            else:
+                masks[obj_idx] = m[0]
             ptrs[obj_idx] = np.asarray(row["obj_ptr"], np.float32)[0]
             scores[obj_idx] = np.asarray(row["object_score_logits"], np.float32)[0]
             valid[obj_idx] = True
+        if to_resize:
+            # the JAX package resizes each object's row on its own (a
+            # one-channel cv2 call each): one call here, one mask a group
+            resized = self._resize(np.stack(list(to_resize.values())), (h, w), group=1)
+            for i, obj_idx in enumerate(to_resize):
+                masks[obj_idx] = resized[i]
 
         out = {"pred_masks": masks, "obj_ptr": ptrs, "object_score_logits": scores,
                "valid": valid}

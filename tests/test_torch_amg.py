@@ -9,7 +9,7 @@ islands, which cv2 breaks by its label order.
 
 ``generate`` runs both generators on the CPU with the weights of
 test_torch_video_predictor.py (tiny_test_config), JAX's image predictor
-handed the port's prepare_frame and its numpy mask-resize taps (see
+handed the port's prepare_frame, both resizing masks with cv2's bits (see
 test_torch_image_predictor.py). The thresholds are lowered so that masks
 survive (random weights predict low IoU). Gates: the same number of
 records and the same (crop box, point) prompts; within a prompt, in
@@ -175,7 +175,6 @@ def predictors():
     on near-zero logits."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_ip, "prepare_frame", misc.prepare_frame)
-        mp.setattr(jax_misc, "cv2", None)  # JAX's numpy resize taps
         jeng, _ = make_engines()
         params = jax.tree_util.tree_map(np.array, jeng.params)
         for i in range(4):

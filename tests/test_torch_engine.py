@@ -181,7 +181,8 @@ def test_port_imports_no_jax():
               "tools.extract_frames", "tools.process_dataset", "training.dataset",
               "training.trainer", "training.checkpoint_utils", "training.launch",
               "parallel.mesh", "config_yaml", "ops.quant", "parallel.inference_sharding",
-              "parallel.spatial", "export", "tools.download_ckpts", "utils.cv2_resize"):
+              "parallel.spatial", "export", "tools.download_ckpts", "utils.cv2_resize",
+              "ops.mask_resize"):
         assert f"det_sam2_tpu_torch.{m}" in mods, m
 
 

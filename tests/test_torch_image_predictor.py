@@ -5,9 +5,9 @@ Same weights as test_torch_video_predictor.py (tiny_test_config, seeded,
 object-score bias +1), both on the CPU in fp32 with TF32 off. The images are
 96x112, away from model size: JAX's image predictor resizes with cv2, and
 it is handed the port's prepare_frame (cv2's arithmetic in numpy, equal to
-it bit for bit), and JAX's host mask resize takes its numpy taps
-(the weights of the port's device resize, F.interpolate's bilinear) instead
-of cv2.resize. Tolerances: logits and IoU predictions within ATOL (the
+it bit for bit); JAX's host mask resize is its cv2.resize, whose bits the
+port computes too (tests/test_torch_mask_resize.py holds them equal on the
+same logits). Tolerances: logits and IoU predictions within ATOL (the
 port's tests' fp32 parity tolerance), binary masks with IoU >= MIN_IOU where
 the union is non-empty.
 """
@@ -18,7 +18,6 @@ import pytest
 import torch
 
 import det_sam2_tpu.image_predictor as jax_ip
-import det_sam2_tpu.utils.misc as jax_misc
 from det_sam2_tpu.ops.connected_components import (
     fill_holes_and_sprinkles_np as jax_fill,
 )
@@ -42,7 +41,6 @@ H, W = 96, 112
 def engines():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_ip, "prepare_frame", misc.prepare_frame)
-        mp.setattr(jax_misc, "cv2", None)  # JAX's numpy resize taps
         yield make_engines()
 
 

@@ -1,5 +1,5 @@
-"""K1 / K2 (pre-pass and main) / K3a / K3b CUDA kernels against their plain
-PyTorch versions, on the card.
+"""K1 / K2 (pre-pass and main) / K3a / K3b CUDA kernels and the mask resize
+kernel against their plain PyTorch versions, on the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -13,7 +13,8 @@ Tolerances are chip_smoke.py's, in units of the output type's own rounding
 step: max-abs error <= MAX_ULPS ulps of max|ref| and mean-abs error <=
 MEAN_EPS * eps * mean|ref|. bf16: both sides round an fp32 result to bf16
 and the kernel also rounds the unnormalised P per key tile; fp32: another
-summation order and expf.
+summation order and expf. The mask resize kernel computes cv2's bits:
+equal bit for bit.
 """
 
 import math
@@ -487,3 +488,25 @@ def test_int8_products_equal_their_cpu_result_at_hiera_s_shapes_on_cuda(dev, mon
     with pytest.raises(ValueError, match="_int_mm"):
         quant.int8_mm(torch.zeros(16, 32, dtype=torch.int8, device=dev),
                       torch.zeros(32, 32, dtype=torch.int8, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,out_hw,group", [(4, (2160, 3840), 128), (192, (1024, 1024), 128),
+                                            (2, (720, 1280), 1)])
+def test_mask_resize_matches_plain_bit_for_bit_on_cuda(dev, n, out_hw, group):
+    """csrc/mask_resize.cu against its plain version (the host rebuild of
+    cv2.resize) bit for bit, at three of chip_smoke.py's shapes: 4 masks on
+    IPP's path with its border rule (7-8 clamped columns a side at 4K), 192
+    as two generic chunks, 128 + 64, and 2 masks one a cv2 call (the
+    predictor's per-object resize: IPP's one channel, where the pair would
+    be generic). One launch a call."""
+    from det_sam2_tpu_torch.ops import mask_resize as mr
+
+    x = (_rand((n, 256, 256), n) * 8).contiguous()
+    before = att.LAUNCHES["mask_resize"]
+    out = mr.resize_masks_cv2(x.to(dev), out_hw, group)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES["mask_resize"] == before + 1
+    ref = mr.resize_masks_cv2_ref(x, out_hw, group)
+    assert out.shape == (n,) + out_hw and out.dtype == torch.float32
+    assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))

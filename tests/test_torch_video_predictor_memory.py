@@ -185,15 +185,17 @@ def test_banked_predictor_matches_gather_predictor(engines):
 
 @pytest.mark.parametrize("src, dst", [(32, (96, 112)), (32, (1280, 720)), (256, (20, 24)),
                                       (7, (5, 9))])
-def test_resize_masks_np_matches_jax(monkeypatch, src, dst):
+def test_resize_masks_np_matches_jax(src, dst):
+    """JAX's resize_masks_np with cv2 present (cv2 is installed here): the
+    port rebuilds cv2's arithmetic, so equal bit for bit (6 masks: cv2's
+    generic float path)."""
+    assert jax_misc.cv2 is not None
     masks = np.random.default_rng(0).standard_normal((2, 3, 1, src, src)).astype(np.float32)
     got = misc.resize_masks_np(masks, dst)
     assert got.shape == (2, 3, 1) + dst
-    with_cv2 = jax_misc.resize_masks_np(masks, dst)
-    monkeypatch.setattr(jax_misc, "cv2", None)  # JAX's numpy path: the same taps
     np.testing.assert_array_equal(got, jax_misc.resize_masks_np(masks, dst))
-    np.testing.assert_allclose(got, with_cv2, atol=1e-4)
-    # and F.interpolate's bilinear, which the weights copy
+    # and close to F.interpolate's bilinear, which computes nearly the same
+    # function (the JAX package's device path)
     ref = torch.nn.functional.interpolate(torch.from_numpy(masks).reshape(-1, 1, src, src),
                                           size=dst, mode="bilinear", align_corners=False)
     np.testing.assert_allclose(got.reshape(ref.shape), ref.numpy(), atol=1e-4)
