@@ -22,10 +22,15 @@ plain version (the port's host rebuild of cv2) at 2 masks 256^2 -> 720x1280
 rule), 1 -> 1024^2 and 192 -> 1024^2 (two groups of cv2 calls), and at the
 main paths' own calls: 4 masks to 720x1280 and to 1080x1920, 2 and 4 masks
 resized one a cv2 call (a prompt call's per-object resize), 1, 3 and 192
-masks to 720x1280; planted faults (the generic path with FMA contraction,
-the border rule off, a group on the wrong path, the default group where the
-caller asked for 1) must change the bits; times the kernel, the plain
-version on the host and F.interpolate's bilinear on the card.
+masks to 720x1280, then 4 and 2 masks to 480x854 (IPP and generic, W %
+4 == 2) and 6 masks to 128^2 (INTER_AREA); planted faults (the generic path
+with FMA contraction, the border rule off, a group on the wrong path, the
+row cache not moved on, the default group where the caller asked for 1)
+must change the bits; times on the device (CUDA events over 100 queued
+back-to-back calls) the kernel alone and F.interpolate's bilinear, beside
+a fill_ of the same bytes, the wrapper's wall time a call and the plain
+version on the host; then, ungated, the hole-filling stencil's device time
+and kernel count at [2|4,1,256,256] (torch.profiler).
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
@@ -257,6 +262,39 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# clock cycles the card spins (torch.cuda._sleep) before device_ms's timed
+# calls, so that the host has queued them all before the first one runs
+SPIN_CYCLES = 20_000_000
+
+
+def device_ms(fn, iters: int = 100, warmup: int = 3) -> float:
+    """Device ms a call of fn over iters back-to-back calls timed with CUDA
+    events. The calls are queued behind
+    a spin of the card long enough that the host runs ahead, so the events
+    see the device's work and the gaps between its launches, not the
+    host's launch cost; the spin grows until it outlasts the enqueue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    cycles = SPIN_CYCLES
+    for _ in range(4):
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3
+        e2.record()
+        torch.cuda.synchronize()
+        if host < e0.elapsed_time(e1):
+            return e1.elapsed_time(e2) / iters
+        cycles *= 4
+    raise RuntimeError(f"device_ms: the host took {host:.1f} ms to queue {iters} calls, "
+                       f"longer than a spin of {cycles // 4} cycles")
 
 
 def bound_ms(flops: float, nbytes: float, dtype, peak=None):
@@ -659,7 +697,10 @@ def phase_kernels(dev, results):
 # two generic groups, 128 + 64. Then the main paths' own calls: phase 5's
 # 4 objects at 720x1280, phase 6's 4 balls at 1080x1920, a prompt call's
 # per-object resize (group 1: each row alone, IPP's one channel where 2 in
-# a group would be generic), and phase 7's 1, 3 and 192 masks at 720x1280
+# a group would be generic), and phase 7's 1, 3 and 192 masks at 720x1280.
+# Last, real sizes the others miss: 480p video (W = 854, W % 4 == 2: the
+# kernel's 8-byte stores and scalar tail) on IPP's and the generic path,
+# and 6 masks 256^2 -> 128^2 (INTER_AREA's 2x downscale)
 MR_CASES = (
     ("generic_2_masks_720p", 2, (720, 1280), 128, "predictor"),
     ("ipp_3_masks_1080p", 3, (1080, 1920), 128, "application"),
@@ -673,6 +714,9 @@ MR_CASES = (
     ("ipp_1_mask_720p", 1, (720, 1280), 128, "image"),
     ("ipp_3_masks_720p", 3, (720, 1280), 128, "image"),
     ("generic_192_masks_720p", 192, (720, 1280), 128, "image"),
+    ("ipp_4_masks_480p", 4, (480, 854), 128, "predictor"),
+    ("generic_2_masks_480p", 2, (480, 854), 128, "predictor"),
+    ("area_6_masks_128", 6, (128, 128), 128, "image"),
 )
 # planted fault -> the case that must catch it; the last is no kernel
 # fault but the wrapper called with the default group where the caller
@@ -680,7 +724,8 @@ MR_CASES = (
 MR_FAULT_CASES = {"generic path compiled with FMA contraction": "generic_2_masks_720p",
                   "IPP border rule off": "ipp_border_4_masks_4k",
                   "first group on the wrong path": "generic_192_masks_1024",
-                  "group 128 in place of 1": "per_object_2_masks_720p"}
+                  "group 128 in place of 1": "per_object_2_masks_720p",
+                  "row cache not moved on to y1's row": "ipp_4_masks_480p"}
 # real calls of the predictors' resize held bit for bit against the plain
 # version, a (masks, h, w, H, W, group) key
 MR_HELD_PER_KEY = 2
@@ -693,9 +738,15 @@ def _same_bits(a, b) -> bool:
 def phase_mask_resize(dev, results):
     """The mask resize kernel against its plain version (the host rebuild
     of cv2.resize) bit for bit at MR_CASES; planted faults must change the
-    bits. Times the kernel, the plain version on the host and
-    F.interpolate's bilinear on the card (nearly the same function, no bits
-    stated) as the library's yardstick."""
+    bits. Times, on the device (device_ms: CUDA events over 100 queued
+    back-to-back calls), the kernel alone (att.launch into a preallocated
+    output, the taps cached) and F.interpolate's bilinear on the card
+    (nearly the same function, no bits stated: the library's yardstick),
+    and beside them a fill_ of the output's bytes (the card's store rate),
+    the wrapper's wall time a call (resize_masks_cv2, host and launch
+    included: time_ms over 100 calls) and the plain version on the host.
+    Last, ungated, the hole-filling stencil's device time."""
+    from det_sam2_tpu_torch.ops import attention as att
     from det_sam2_tpu_torch.ops import mask_resize as mr
 
     ok = True
@@ -724,25 +775,79 @@ def phase_mask_resize(dev, results):
                     f"{float((bad - ref).abs().max()):.3g} {'caught' if caught else 'MISSED'}")
                 ok &= caught
                 del bad
-        ms = time_ms(lambda: mr.resize_masks_cv2(x, hw, group), 20)
-        lib = time_ms(lambda: F.interpolate(x[:, None], size=hw, mode="bilinear",
-                                            align_corners=False), 20)
+        into = torch.empty_like(out)
+        args = mr.launch_args(x, into, group)
+        ms = device_ms(lambda: att.launch("mask_resize", *args))
+        same_again = _same_bits(into.cpu(), ref)  # the timed launches' output
+        ok &= same_again
+        lib = device_ms(lambda: F.interpolate(x[:, None], size=hw, mode="bilinear",
+                                              align_corners=False))
+        fill = device_ms(lambda: into.fill_(1.0))
+        wrapper = time_ms(lambda: mr.resize_masks_cv2(x, hw, group), 100)
         idx, wt = mr._device_taps((256, 256), hw, dev)
         # 9 fp32 operations an output (two horizontal values, one vertical)
         bnd, by = bound_ms(9.0 * out.numel(), nbytes(x, out, idx, wt), torch.float32)
         log(f"[kernels] mask_resize {label}: {n} masks 256^2 -> {hw[0]}x{hw[1]}, group "
-            f"{group}, bit for bit {same} (max_abs_err {err:.3g}); ms {ms:.4f} plain_ms "
-            f"(host) {plain:.1f} interpolate_ms {lib:.4f} bound_ms {bnd:.4f} ({by}) "
-            f"{'OK' if same else 'FAIL'}")
+            f"{group}, row tile {args[10]}, bit for bit {same} (timed launches {same_again}; "
+            f"max_abs_err {err:.3g}); device ms: kernel {ms:.4f} interpolate {lib:.4f} "
+            f"fill_ of the output {fill:.4f}; bound_ms {bnd:.4f} ({by}, kernel at "
+            f"{bnd / ms:.2f} of it); wrapper_ms {wrapper:.4f} plain_ms (host) {plain:.1f} "
+            f"{'OK' if same and same_again else 'FAIL'}")
         results.append(dict(
             name=f"mask_resize:{label}", route="cuda", source=MR_SRC, replaces=MR_REPLACES,
             kernel="mask_resize", path=path, dtype="float32",
             shape=dict(x=list(x.shape), out=list(out.shape), group=group), max_abs_err=err,
             ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-            bound_scheme="memory: bytes / 3.35 TB/s", library_ms=lib))
-        del x, out, ref, got
+            bound_scheme="memory: bytes / 3.35 TB/s", library_ms=lib, wrapper_ms=wrapper,
+            fill_ms=fill))
+        del x, out, ref, got, into, args
         torch.cuda.empty_cache()
+    fill_holes_line(dev)
     return ok
+
+
+def fill_holes_line(dev):
+    """Ungated: the low-res hole filling's device time
+    (ops/connected_components.fill_holes_in_mask_scores, fill_hole_area 8, a
+    torch stencil) at the serving shape [2,1,256,256] and the application's
+    [4,1,256,256]: the CUDA kernels, copies and fills of one call with their
+    device time (torch.profiler), beside the ms a call of 20 back-to-back
+    calls (CUDA events). The call copies a constant from the host each time,
+    which waits for the stream (a pageable host-to-device copy), so
+    device_ms's queued timing does not apply: the events see the host's
+    pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from det_sam2_tpu_torch.ops.connected_components import fill_holes_in_mask_scores
+
+    parts = []
+    for b in (2, 4):
+        g = torch.Generator(device=dev).manual_seed(b)
+        x = torch.randn(b, 1, 256, 256, generator=g, device=dev) * 8
+
+        def fn():
+            return fill_holes_in_mask_scores(x, 8.0)
+
+        ms = time_ms(fn, 20)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops, busy, copies, top = 0, 0.0, 0, []
+        for e in prof.key_averages():
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+                ops += e.count
+                busy += dev_us / 1e3
+                copies += e.count if "Memcpy" in e.key else 0
+                top.append((dev_us / 1e3, e.key[:40]))
+        top.sort(reverse=True)
+        parts.append(f"[{b},1,256,256]: {ops} device operations ({copies} copies) busy "
+                     f"{busy:.4f} ms (profiler), {ms:.4f} ms a call back to back (events); "
+                     f"top {', '.join(f'{k} {t:.4f}' for t, k in top[:3])}")
+    log("[fill_holes] fill_holes_in_mask_scores, fill_hole_area 8 (ungated): "
+        + "; ".join(parts))
 
 
 @contextlib.contextmanager

@@ -492,14 +492,17 @@ def test_int8_products_equal_their_cpu_result_at_hiera_s_shapes_on_cuda(dev, mon
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,out_hw,group", [(4, (2160, 3840), 128), (192, (1024, 1024), 128),
-                                            (2, (720, 1280), 1)])
+                                            (2, (720, 1280), 1), (4, (480, 854), 128),
+                                            (2, (480, 854), 128), (6, (128, 128), 128)])
 def test_mask_resize_matches_plain_bit_for_bit_on_cuda(dev, n, out_hw, group):
     """csrc/mask_resize.cu against its plain version (the host rebuild of
-    cv2.resize) bit for bit, at three of chip_smoke.py's shapes: 4 masks on
+    cv2.resize) bit for bit, at six of chip_smoke.py's shapes: 4 masks on
     IPP's path with its border rule (7-8 clamped columns a side at 4K), 192
-    as two generic chunks, 128 + 64, and 2 masks one a cv2 call (the
+    as two generic chunks, 128 + 64, 2 masks one a cv2 call (the
     predictor's per-object resize: IPP's one channel, where the pair would
-    be generic). One launch a call."""
+    be generic), 480p video on IPP's and the generic path (W = 854: rows
+    8-byte aligned every other row and a scalar tail), and INTER_AREA's 2x
+    downscale. One launch a call."""
     from det_sam2_tpu_torch.ops import mask_resize as mr
 
     x = (_rand((n, 256, 256), n) * 8).contiguous()

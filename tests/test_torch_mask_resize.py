@@ -16,7 +16,9 @@ CPU, every comparison is bit for bit with cv2 installed:
   * ``resize_masks_np`` against JAX's with cv2 present at 1-5, 12, 128,
     129 and 130 masks, 256^2 -> 720x1280 and 1080x1920;
   * the kernel's packed taps, read as csrc/mask_resize.cu reads them (a
-    numpy mirror of its arithmetic), against the plain version;
+    numpy mirror of its schedule and arithmetic: row tiles with their
+    two-row cache of horizontal values, 4-column groups and the tail),
+    against the plain version, and its launch limits;
   * the video predictor's video-resolution masks (propagate_in_video and
     the prompt calls) and the image predictor's masks against JAX's
     resize of the same low-res logits.
@@ -169,18 +171,28 @@ def test_resize_masks_np_keeps_the_lead_axes_and_same_size_input():
 # ---------------------------------------------------------------------------
 
 
-def _kernel_mirror(src, out_hw, group=128, fault=0):
-    """csrc/mask_resize.cu's arithmetic in numpy, on the taps that
-    ops/mask_resize.py packs for it, read at the kernel's offsets."""
+def _kernel_mirror(src, out_hw, group=128, fault=0, rows=mask_resize.MAX_ROWS):
+    """csrc/mask_resize.cu's schedule and arithmetic in numpy, on the taps
+    that ops/mask_resize.py packs for it, read at the kernel's offsets: each
+    mask in tiles of ``rows`` output rows; down a tile the horizontal values
+    of the last two source rows kept (pa for y0's row, pb for y1's) and a
+    source row's computed only when y0 or y1 moves on to it; each row
+    written in groups of 4 columns, the last partial group column by column.
+    The 4-column threads' arithmetic is elementwise, so the mirror runs a
+    row's columns (rounded up to 4, the padded taps) at once."""
     n, h, w = src.shape
     oh, ow = out_hw
+    ow4 = -(-ow // 4) * 4
     idx, wt = mask_resize.mask_resize_taps((h, w), (oh, ow))
-    seg = lambda a, start, size: a[start:start + size]  # noqa: E731
-    gx0, gx1, ix0, ix1, copy, border = (seg(idx, i * ow, ow) for i in range(6))
-    gy0, gy1, iy0, iy1 = (seg(idx, 6 * ow + i * oh, oh) for i in range(4))
-    ga0, ga1, itx = (seg(wt, i * ow, ow) for i in range(3))
-    gb0, gb1, ity = (seg(wt, 3 * ow + i * oh, oh) for i in range(3))
-    out = np.empty((n, oh, ow), np.float32)
+    assert idx.shape == (6 * ow4 + 4 * oh,) and wt.shape == (3 * ow4 + 3 * oh,)
+    xcol = lambda a, i: a[i * ow4:(i + 1) * ow4]  # noqa: E731
+    ycol = lambda a, start, i: a[start + i * oh:start + (i + 1) * oh]  # noqa: E731
+    gx0, gx1, ix0, ix1, copy, border = (xcol(idx, i) for i in range(6))
+    gy0, gy1, iy0, iy1 = (ycol(idx, 6 * ow4, i) for i in range(4))
+    ga0, ga1, itx = (xcol(wt, i) for i in range(3))
+    gb0, gb1, ity = (ycol(wt, 3 * ow4, i) for i in range(3))
+    full = ow // 4 * 4  # columns of whole groups: one 16-byte store a row
+    out = np.full((n, oh, ow), np.nan, np.float32)
     for m in range(n):
         g, c = divmod(m, group)
         cs = min(group, n - group * g)
@@ -189,23 +201,49 @@ def _kernel_mirror(src, out_hw, group=128, fault=0):
             ipp = not ipp
         s = src[m]
         if ipp:
-            def hrow(y):
-                p, q = s[y][:, ix0], s[y][:, ix1]
-                return _fma32(itx, q - p, p)
-            p, q = hrow(iy0), hrow(iy1)
-            d = q - p
-            o = _fma32(ity[:, None], d, p)
-            b = np.zeros(ow, bool) if fault == 2 else border
+            b = np.zeros(ow4, np.int32) if fault == 2 else border
             twice = ((b == 1) & (cs == 3) & (c < 2)) | ((b != 0) & (cs == 4))
-            o[:, twice] = (p + ity[:, None] * d)[:, twice]
-        elif 2 * ow == w and 2 * oh == h:
-            o = (((s[0::2, 0::2] + s[0::2, 1::2]) + s[1::2, 0::2]) + s[1::2, 1::2]) * np.float32(0.25)
-        else:
+            y0s, y1s = iy0, iy1
+
             def hrow(y):
-                r = s[y][:, gx0] * ga0 + s[y][:, gx1] * ga1
-                return np.where(copy.astype(bool), s[y][:, gx0], r)
-            o = hrow(gy0) * gb0[:, None] + hrow(gy1) * gb1[:, None]
-        out[m] = o
+                p, q = s[y][ix0], s[y][ix1]
+                return _fma32(itx, q - p, p)
+
+            def vert(pa, pb, y):
+                d = pb - pa
+                return np.where(twice, pa + ity[y] * d, _fma32(ity[y], d, pa))
+        else:
+            y0s, y1s = gy0, gy1
+
+            def hrow(y):
+                r = s[y][gx0] * ga0 + s[y][gx1] * ga1
+                return np.where(copy != 0, s[y][gx0], r)
+
+            def vert(pa, pb, y):
+                return pa * gb0[y] + pb * gb1[y]
+        area = not ipp and 2 * ow == w and 2 * oh == h
+        for ybeg in range(0, oh, rows):
+            ca = cb = -1
+            for y in range(ybeg, min(ybeg + rows, oh)):
+                if area:
+                    r0, r1 = s[2 * y], s[2 * y + 1]
+                    v = (((r0[0::2] + r0[1::2]) + r1[0::2]) + r1[1::2]) * np.float32(0.25)
+                else:
+                    y0, y1 = y0s[y], y1s[y]
+                    if y0 != ca:
+                        if y0 == cb:
+                            if fault != 4:
+                                pa = pb
+                        else:
+                            pa = hrow(y0)
+                        ca = y0
+                    if y1 != cb:
+                        pb = pa if y1 == y0 else hrow(y1)
+                        cb = y1
+                    v = vert(pa, pb, y)
+                out[m, y, :full] = v[:full]
+                for x in range(full, ow):
+                    out[m, y, x] = v[x]
     return out
 
 
@@ -217,11 +255,17 @@ def _kernel_mirror(src, out_hw, group=128, fault=0):
     (6, 128, (32, 32), (16, 16)),  # generic at an exact 2x downscale: INTER_AREA
     (131, 128, (16, 12), (20, 30)),  # 128 generic + 3 IPP
     (3, 1, (32, 32), (64, 640)),  # one mask a call: three IPP calls of one channel
+    (4, 128, (32, 32), (37, 854)),  # IPP, W % 4 == 2 (480p's 854), H not a multiple of a tile
+    (2, 128, (40, 36), (33, 131)),  # generic, W % 4 == 3, H % 32 == 1
+    (2, 128, (26, 38), (13, 19)),  # INTER_AREA, W % 4 == 3
+    (129, 128, (16, 12), (40, 30)),  # 128 generic + 1 IPP
+    (132, 128, (16, 12), (40, 30)),  # 128 generic + 4 IPP (its border rule)
 ], ids=str)
-def test_kernel_taps_give_the_plain_version(n, group, in_hw, out_hw):
+@pytest.mark.parametrize("rows", [8, 32])
+def test_kernel_taps_give_the_plain_version(n, group, in_hw, out_hw, rows):
     src = _logits((n,) + in_hw, n)
     want = misc.resize_masks_np(src, out_hw, group)
-    assert_same_bits(_kernel_mirror(src, out_hw, group), want)
+    assert_same_bits(_kernel_mirror(src, out_hw, group, rows=rows), want)
     if group == 1:
         assert_same_bits(want, np.concatenate(
             [jax_misc.resize_masks_np(src[i:i + 1], out_hw) for i in range(n)]))
@@ -239,6 +283,48 @@ def test_kernel_mirror_planted_faults_change_the_bits():
                               misc.resize_masks_np(src, (90, 130)))
     assert not np.array_equal(misc.resize_masks_np(src, (90, 130), 1),
                               misc.resize_masks_np(src, (90, 130)))
+    # a stale row cache: on the IPP and the generic path, in every tile
+    # height the kernel takes
+    for n in (4, 2):
+        src = _logits((n, 32, 32), 2)
+        want = misc.resize_masks_np(src, (37, 854))
+        for rows in (8, 16, 32):
+            bad = _kernel_mirror(src, (37, 854), fault=4, rows=rows)
+            assert not np.array_equal(bad, want), (n, rows)
+
+
+@pytest.mark.parametrize("n,oh,ow,sms,rows", [
+    (4, 2160, 3840, 132, 16),  # 259200 threads at 32 rows: below one wave of 270336
+    (192, 720, 1280, 132, 32),
+    (192, 1024, 1024, 132, 32),
+    (4, 1080, 1920, 132, 8),
+    (1, 720, 1280, 132, 8),  # small: the least tile
+    (1, 720, 1280, 1, 32),  # one SM: full tiles
+    (1, 65535 * 8 + 1, 4, 10 ** 6, 9),  # at least the rows that keep grid.y <= 65535
+])
+def test_row_tile(n, oh, ow, sms, rows):
+    assert mask_resize.row_tile(n, oh, ow, sms) == rows
+
+
+def test_check_launch_refuses_what_the_kernel_does_not_take():
+    """The kernel's limits, at the edge and one past it: masks are grid.z
+    (<= 65535), tiles of at most 32 rows are grid.y (<= 65535), the taps'
+    offsets are int32, and no size is empty. The wrapper checks before any
+    launch and never falls back to the host."""
+    ok = mask_resize.check_launch
+    ok(65535, (256, 256), (720, 1280))
+    ok(1, (256, 256), (65535 * 32, 4))
+    ok(1, (1, 1), (1, 1))
+    ow_max = (2 ** 31 - 1 - 4 * 8) // 6 // 4 * 4
+    ok(1, (4, 4), (8, ow_max))
+    for n, in_hw, out_hw in [(65536, (256, 256), (720, 1280)), (0, (256, 256), (720, 1280)),
+                             (1, (256, 256), (65535 * 32 + 1, 4)),
+                             (1, (0, 256), (720, 1280)), (1, (256, 256), (720, 0)),
+                             (1, (4, 4), (8, ow_max + 4))]:
+        with pytest.raises(ValueError, match="mask_resize"):
+            ok(n, in_hw, out_hw)
+    with pytest.raises(ValueError, match="channels"):
+        mask_resize.resize_masks_cv2(torch.zeros(1, 4, 4), (8, 8), group=129)
 
 
 def test_resize_masks_cv2_on_the_cpu_is_the_plain_version():
