@@ -35,6 +35,7 @@ import torch
 from det_sam2_tpu_torch import state as bank_ops
 from det_sam2_tpu_torch.configs import SAM2Config
 from det_sam2_tpu_torch.track import SAM2Engine
+from det_sam2_tpu_torch.utils.profiling import spanned
 
 
 class BatchedVideoStreamer:
@@ -215,6 +216,7 @@ class BatchedVideoStreamer:
 
     # ------------------------------------------------------------------
 
+    @spanned("streamer.window")
     def propagate_window(
         self,
         frames,
@@ -232,7 +234,8 @@ class BatchedVideoStreamer:
         (pred_masks [T, O_total, 1, s4, s4] fp16, obj_ptr [T, O_total, C],
         object_score_logits [T, O_total, 1], skips [T, B]) on the engine's
         device (skips on the host); split the object axis with
-        :meth:`split`.
+        :meth:`split`. The whole call is the ``streamer.window`` span, a
+        step of its own when no span is around it.
         """
         frame_indices = np.asarray(frame_indices, np.int32)
         t = len(frame_indices)

@@ -31,6 +31,7 @@ from det_sam2_tpu_torch.ops import attention as att
 from det_sam2_tpu_torch.utils import cv2_resize
 from det_sam2_tpu_torch.utils.cv2_resize import MASK_GROUP
 from det_sam2_tpu_torch.utils.misc import resize_masks_np
+from det_sam2_tpu_torch.utils.profiling import spanned
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # src, dst, idx, wt, n, group, h, w, oh, ow, rows, fault, stream
@@ -136,6 +137,7 @@ def launch_args(src: torch.Tensor, out: torch.Tensor, group: int, fault: int = 0
             torch.cuda.current_stream(src.device).cuda_stream)
 
 
+@spanned("ops.mask_resize")
 def resize_masks_cv2(x: torch.Tensor, out_hw, group: int = MASK_GROUP,
                      fault: int = 0) -> torch.Tensor:
     """Mask logits [..., h, w] -> float32 [..., H, W], equal to the JAX
@@ -143,7 +145,8 @@ def resize_masks_cv2(x: torch.Tensor, out_hw, group: int = MASK_GROUP,
     [N, h, w] and resized as the channels of cv2 calls of ``group`` masks
     (128, the JAX package's; 1 for its per-object resizes). A CPU tensor
     takes the plain version; a CUDA tensor launches csrc/mask_resize.cu on
-    the current stream, one launch a call, or raises (``check_launch``)."""
+    the current stream, one launch a call, or raises (``check_launch``).
+    The call is the ``ops.mask_resize`` span."""
     h, w = x.shape[-2:]
     oh, ow = int(out_hw[0]), int(out_hw[1])
     if (h, w) == (oh, ow):

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from det_sam2_tpu_torch.configs import SAM2Config
+from det_sam2_tpu_torch.utils.profiling import spanned
 
 INVALID = -1
 _FAR = 2 ** 30
@@ -178,12 +179,13 @@ def _write_banked(bank: MemoryBank, row: torch.Tensor, mem, mem_k) -> None:
     _set_row(bank.mem_v, row, mem)
 
 
+@spanned("bank.write")
 def write_cond(bank: MemoryBank, frame_idx: int, mem: torch.Tensor,
                ptr: torch.Tensor, obj_valid: Optional[torch.Tensor] = None,
                pinned: bool = False,
                mem_k: Optional[torch.Tensor] = None) -> MemoryBank:
-    """Write one cond slot in place. mem [O, S, Cm]; ptr [O, C]; mem_k
-    [O, L, S, D] (banked mode only)."""
+    """Write one cond slot in place, in the ``bank.write`` span. mem [O, S,
+    Cm]; ptr [O, C]; mem_k [O, L, S, D] (banked mode only)."""
     if obj_valid is None:
         obj_valid = torch.ones(mem.shape[0], dtype=torch.bool, device=mem.device)
     slot, had_match = _choose_write_slot(bank.cond_frame_idx, bank.cond_pinned,
@@ -198,10 +200,12 @@ def write_cond(bank: MemoryBank, frame_idx: int, mem: torch.Tensor,
     return bank
 
 
+@spanned("bank.write")
 def write_noncond(bank: MemoryBank, frame_idx: int, mem: torch.Tensor,
                   ptr: torch.Tensor, obj_valid: Optional[torch.Tensor] = None,
                   mem_k: Optional[torch.Tensor] = None) -> MemoryBank:
-    """Write one non-cond slot in place (eviction = temporally furthest)."""
+    """Write one non-cond slot in place (eviction = temporally furthest), in
+    the ``bank.write`` span."""
     if obj_valid is None:
         obj_valid = torch.ones(mem.shape[0], dtype=torch.bool, device=mem.device)
     slot, _ = _choose_write_slot(bank.noncond_frame_idx,

@@ -36,12 +36,15 @@ from det_sam2_tpu_torch.state import (
     write_cond,
     write_noncond,
 )
+from det_sam2_tpu_torch.utils.profiling import span, spanned
 
 
 def _maybe_fill_holes(cfg: SAM2Config, low_res: torch.Tensor) -> torch.Tensor:
-    """fill_holes_in_mask_scores on the low-res logits (fill_hole_area)."""
+    """fill_holes_in_mask_scores on the low-res logits (fill_hole_area), in
+    the ``engine.fill`` span."""
     if cfg.fill_hole_area > 0:
-        return fill_holes_in_mask_scores(low_res, float(cfg.fill_hole_area))
+        with span("engine.fill"):
+            return fill_holes_in_mask_scores(low_res, float(cfg.fill_hole_area))
     return low_res
 
 
@@ -67,12 +70,14 @@ def _fill_stacked(cfg: SAM2Config, low: torch.Tensor) -> torch.Tensor:
     s4], in fp32, a chunk of frames at a time (the chunk bounds the stencil's
     working set), returned in fp16: the JAX window's order of rounding (fp16
     first, then the fill). Skip-step rows are all-zero planes, one background
-    component larger than fill_hole_area, so the fill leaves them alone."""
+    component larger than fill_hole_area, so the fill leaves them alone. One
+    ``engine.fill`` span."""
     if cfg.fill_hole_area <= 0 or low.shape[0] == 0:
         return low
     chunk = max(1, 8 // max(low.shape[1], 1))
-    return torch.cat([_maybe_fill_holes(cfg, c.float()).half()
-                      for c in low.split(chunk)])
+    with span("engine.fill"):
+        return torch.cat([fill_holes_in_mask_scores(c.float(), float(cfg.fill_hole_area)).half()
+                          for c in low.split(chunk)])
 
 
 def _c_strides(shape) -> tuple:
@@ -115,27 +120,33 @@ def _assemble_memory(model: SAM2Model, cfg: SAM2Config, sel):
 
 def _conditioned_features(model, cfg, feat_o, bank, frame_idx, num_frames,
                           reverse: bool, is_init: bool):
-    """Memory-condition the current frame's features."""
+    """Memory-condition the current frame's features: the memory's
+    selection and assembly in the ``bank.select`` span, memory attention in
+    ``engine.memattn``."""
     if is_init or cfg.num_maskmem == 0:
         if cfg.directly_add_no_mem_embed:
             return model.no_mem_features(feat_o)
         raise NotImplementedError("SAM 2.1 always sets directly_add_no_mem_embed")
     if bank.mem_k is not None:
-        return _conditioned_features_banked(model, cfg, feat_o, bank,
-                                            frame_idx, num_frames, reverse)
-    sel = select_memory(cfg, bank, frame_idx, num_frames, reverse)
-    memory, memory_pos, valid, lay = _assemble_memory(model, cfg, sel)
-    return model.attend_memory(feat_o, memory, memory_pos, valid,
-                               num_mem_frames=lay.num_mem_frames,
-                               num_obj_ptr_tokens=lay.num_ptr_tokens)
+        with span("bank.select"):
+            memory = _banked_memory(model, cfg, bank, frame_idx, num_frames, reverse)
+        with span("engine.memattn"):
+            return model.attend_memory_banked(feat_o, bank.mem_k, bank.mem_v, *memory)
+    with span("bank.select"):
+        sel = select_memory(cfg, bank, frame_idx, num_frames, reverse)
+        memory, memory_pos, valid, lay = _assemble_memory(model, cfg, sel)
+    with span("engine.memattn"):
+        return model.attend_memory(feat_o, memory, memory_pos, valid,
+                                   num_mem_frames=lay.num_mem_frames,
+                                   num_obj_ptr_tokens=lay.num_ptr_tokens)
 
 
-def _conditioned_features_banked(model, cfg, feat_o, bank, frame_idx,
-                                 num_frames, reverse: bool):
-    """Bank-indirect conditioning: no tile gathers and no per-frame K
-    projection; K2 reads the cached K (mem_k) and raw V (mem_v) from the
+def _banked_memory(model, cfg, bank, frame_idx, num_frames, reverse: bool):
+    """Bank-indirect conditioning's memory: no tile gathers and no per-frame
+    K projection; K2 reads the cached K (mem_k) and raw V (mem_v) from the
     selected bank rows. Only the obj-ptr tokens (written in place into the
-    staging row), the validity mask and the tpos vectors are built here."""
+    staging row), the validity mask and the tpos vectors are built here.
+    Returns K2's (slots, tpos_vecs, mask)."""
     sel = select_memory(cfg, bank, frame_idx, num_frames, reverse,
                         gather_spatial=False)
     lay = sel["layout"]
@@ -165,8 +176,7 @@ def _conditioned_features_banked(model, cfg, feat_o, bank, frame_idx,
     valid_stage = torch.nn.functional.pad(
         sel["ptr_valid"].repeat_interleave(tpp, 1), (0, s - n_ptr))
     mask = torch.cat([valid_sp, valid_stage], 1)
-    return model.attend_memory_banked(feat_o, bank.mem_k, bank.mem_v, slots,
-                                      tpos_vecs, mask)
+    return slots, tpos_vecs, mask
 
 
 def _memk(model, bank, smem):
@@ -242,12 +252,14 @@ class SAM2Engine:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
+    @spanned("engine.encode")
     def encode_image(self, img):
         """img [B, H, W, 3] (uint8 raw or normalised float) -> (feat_s0,
-        feat_s1, feat), NHWC. The frames are copied to C-order strides
-        first when they have others (a numpy view can carry any stride on
-        a size-1 axis): the trunk's first convolution picks its algorithm,
-        and so its rounding, by the input's strides."""
+        feat_s1, feat), NHWC, in the ``engine.encode`` span. The frames are
+        copied to C-order strides first when they have others (a numpy view
+        can carry any stride on a size-1 axis): the trunk's first
+        convolution picks its algorithm, and so its rounding, by the
+        input's strides."""
         img = self._t(img)
         if img.stride() != _c_strides(img.shape):
             img = img.clone(memory_format=torch.contiguous_format)
@@ -257,21 +269,26 @@ class SAM2Engine:
                fill: bool = True):
         """Memory read -> SAM heads -> memory write (in place) -> outputs
         (pred_masks hole-filled unless fill=False). feats have a batch of 1
-        (broadcast over the objects) or one row an object."""
+        (broadcast over the objects) or one row an object. Spans: the
+        memory's (``_conditioned_features``), ``engine.heads``,
+        ``engine.memenc`` (the memory encoder and the write's K cache),
+        ``bank.write`` and ``engine.fill``."""
         cfg, m = self.cfg, self.model
         o = bank.num_objects
         s0, s1, feat = _broadcast_feats(feats, o)
         pix = _conditioned_features(m, cfg, feat, bank, frame_idx, num_frames,
                                     reverse, is_init=False)
         multimask = use_multimask(cfg, is_init=False, num_pts=0)
-        (_, _, ious, low_res, high_res, obj_ptr, obj_logits) = m.forward_sam_heads(
-            pix, high_res_features=[s0, s1], multimask_output=multimask)
-        maskmem = m.encode_memory(feat, high_res, obj_logits, binarize=False,
-                                  apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        smem = maskmem.reshape(o, -1, cfg.mem_dim)
+        with span("engine.heads"):
+            (_, _, ious, low_res, high_res, obj_ptr, obj_logits) = m.forward_sam_heads(
+                pix, high_res_features=[s0, s1], multimask_output=multimask)
+        with span("engine.memenc"):
+            maskmem = m.encode_memory(feat, high_res, obj_logits, binarize=False,
+                                      apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
+            smem = maskmem.reshape(o, -1, cfg.mem_dim)
+            memk = _memk(m, bank, smem)
         write_noncond(bank, frame_idx, smem, obj_ptr,
-                      obj_valid=self._obj_valid(obj_valid, o),
-                      mem_k=_memk(m, bank, smem))
+                      obj_valid=self._obj_valid(obj_valid, o), mem_k=memk)
         return bank, {
             "pred_masks": _maybe_fill_holes(cfg, low_res) if fill else low_res,
             "obj_ptr": obj_ptr,
@@ -353,13 +370,14 @@ class SAM2Engine:
         low_res_masks = self._t(low_res_masks, torch.float32)
         o = low_res_masks.shape[0]
         _, _, feat = _broadcast_feats(feats, o)
-        high_res = resize_bilinear(low_res_masks, (cfg.image_size, cfg.image_size))
-        binarize = cfg.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts
-        maskmem = m.encode_memory(feat, high_res, self._t(obj_logits, torch.float32),
-                                  binarize=binarize,
-                                  apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
-        smem = maskmem.reshape(o, -1, cfg.mem_dim)
-        memk = _memk(m, bank, smem)
+        with span("engine.memenc"):
+            high_res = resize_bilinear(low_res_masks, (cfg.image_size, cfg.image_size))
+            binarize = cfg.binarize_mask_from_pts_for_mem_enc and is_mask_from_pts
+            maskmem = m.encode_memory(feat, high_res, self._t(obj_logits, torch.float32),
+                                      binarize=binarize,
+                                      apply_non_overlap=cfg.non_overlap_masks_for_mem_enc)
+            smem = maskmem.reshape(o, -1, cfg.mem_dim)
+            memk = _memk(m, bank, smem)
         obj_ptr = self._t(obj_ptr)
         valid = self._obj_valid(obj_valid, o)
         if to_cond:
@@ -462,6 +480,7 @@ class SAM2Engine:
             img_idx=img_idx)
 
     @torch.no_grad()
+    @spanned("engine.window")
     def propagate_window_batched(self, images, bank: MemoryBank, frame_indices,
                                  skips, num_frames: int, counts,
                                  reverse: bool = False, obj_valid=None,
@@ -488,6 +507,8 @@ class SAM2Engine:
         O_total, 1, s4, s4] fp16, obj_ptr [T, O_total, C] fp32,
         object_score_logits [T, O_total, 1] fp32)) on the engine's device,
         the fp16 logits hole-filled once over the window (``_fill_stacked``).
+        The call is the ``engine.window`` span, a step of its own when no
+        span is around it.
 
         Capacity: a partly skipped step still takes a non-cond slot, so a
         skipped video holds more slots than its own session would; once the
