@@ -14,8 +14,16 @@ version; K3 launched twice must give the same bits. Planted faults (a
 skipped key tile, the consumer reading the wrong ring stage, a wrong slot,
 no RoPE correction, the pre-pass leaving out one tile's correction, dq
 without the delta term, dv from the wrong tile, K3's products in one TF32
-pass, ...) must fail the same check, K3's by at least 7x. Last, the mask
-resize kernel (csrc/mask_resize.cu: cv2's INTER_LINEAR of mask logits, the
+pass, ...) must fail the same check, K3's by at least 7x. Then the
+LayerNorm kernel (csrc/layer_norm.cu) against its plain version at the
+benchmark cells' largest call of each width (Hiera-L's stages at 16
+frames, Hiera-S's at 4, memory attention and the downsampler's C = 4, 16,
+the upscaling's 64 at 64 object rows) and at rows whose mean dwarfs their
+spread, bf16 and fp32, under ops.layer_norm.gate_ratio; planted faults
+(the unshifted variance, the last vector of a row not read, w and b
+swapped) must fail it by at least 7x; device ms of kernel and plain
+version beside the bytes bound, and the host's cost of a call. Last, the
+mask resize kernel (csrc/mask_resize.cu: cv2's INTER_LINEAR of mask logits, the
 bits of the JAX package's host resize_masks_np) bit for bit against its
 plain version (the port's host rebuild of cv2) at 2 masks 256^2 -> 720x1280
 (cv2's generic path), 3 -> 1080x1920 (IPP), 4 -> 2160x3840 (IPP's border
@@ -34,7 +42,11 @@ and kernel count at [2|4,1,256,256] (torch.profiler).
 Phase 2 (main path): hiera-S 1024^2 bf16, 2 objects, seeded random weights,
 banked memory bank: box prompts on frame 0, the cond-memory write, then
 stream_step over seeded uint8 frames; prints ms/frame, FPS, peak memory and
-the kernel launch counts of that run.
+the kernel launch counts of that run; layer_norm's launches must equal the
+LayerNorm forwards that hooks count. Over the whole run every LayerNorm
+call is watched: one that takes the kernel (a card, no autograd graph, not
+a plain engine) launches it once, any other none (a training step
+none).
 Phase 3 (checks): the same session, a few frames deep, again with every
 main-path K1/K2 call held against its plain version on the same inputs, in
 gather mode, with every kernel replaced by its plain version, and in fp32
@@ -244,6 +256,10 @@ MR_SRC = "det_sam2_tpu_torch/csrc/mask_resize.cu"
 # no TPU kernel: the JAX package resizes masks on the host with cv2, and the
 # kernel computes that function's bits
 MR_REPLACES = "det_sam2_tpu/utils/misc.py:218"
+LN_SRC = "det_sam2_tpu_torch/csrc/layer_norm.cu"
+# no TPU kernel: the JAX package's LayerNorm is plain jnp that XLA fuses
+# into one sweep, which the kernel gives the port
+LN_REPLACES = "det_sam2_tpu/modeling/layers.py:173"
 
 
 def log(*a):
@@ -687,7 +703,134 @@ def phase_kernels(dev, results):
             del args, margs, kargs, q, mem_k, mem_v, out, ref, keys, keys_ref
             torch.cuda.empty_cache()
     ok &= phase_backward_kernels(dev, results)
+    ok &= phase_layer_norm(dev, results)
     return ok & phase_mask_resize(dev, results)
+
+
+# (label, C, rows, per-row mean up to, spread): the benchmark cells' largest
+# LayerNorm call of each width (Hiera-L's stages at 16 frames, Hiera-S's at
+# 4, memory attention and the downsampler's C = 4, 16 and the upscaling's 64
+# at 64 object rows), then rows whose mean dwarfs their spread (1e4 +- 1:
+# the unshifted variance cancels there)
+LN_CASES = (
+    ("hiera_l_stage1_16_frames", 144, 256 * 256 * 16, 3.0, 1.0),
+    ("hiera_l_stage2_16_frames", 288, 128 * 128 * 16, 3.0, 1.0),
+    ("hiera_l_stage3_16_frames", 576, 64 * 64 * 16, 3.0, 1.0),
+    ("hiera_l_stage4_16_frames", 1152, 32 * 32 * 16, 3.0, 1.0),
+    ("hiera_s_stage1_4_frames", 96, 256 * 256 * 4, 3.0, 1.0),
+    ("hiera_s_stage2_4_frames", 192, 128 * 128 * 4, 3.0, 1.0),
+    ("hiera_s_stage3_4_frames", 384, 64 * 64 * 4, 3.0, 1.0),
+    ("hiera_s_stage4_4_frames", 768, 32 * 32 * 4, 3.0, 1.0),
+    ("memory_attention_64_rows", 256, 64 * 4096, 3.0, 1.0),
+    ("downsampler_c4_64_rows", 4, 512 * 512 * 64, 3.0, 1.0),
+    ("downsampler_c16_64_rows", 16, 256 * 256 * 64, 3.0, 1.0),
+    ("upscaling_c64_64_rows", 64, 128 * 128 * 64, 3.0, 1.0),
+    ("mean_dwarfs_spread", 144, 65536, 1e4, 1.0),
+)
+# planted fault -> (case, type) that must fail the gate by LN_FAULT_MARGIN x
+LN_FAULT_CASES = {"unshifted variance": ("mean_dwarfs_spread", torch.float32),
+                  "last vector of a row not read": ("hiera_l_stage1_16_frames", torch.bfloat16),
+                  "w and b swapped": ("hiera_l_stage1_16_frames", torch.bfloat16)}
+LN_FAULT_MARGIN = 7.0
+
+
+def _ln_inputs(rows, c, offset, spread, dtype, dev, seed):
+    """x [rows, c]: N(0, spread^2) rows moved by a per-row mean, U[0,
+    offset) or offset itself past 1e3; w, b fp32 N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, c, generator=g, device=dev) * spread
+    x += offset if offset > 1e3 else offset * torch.rand(rows, 1, generator=g, device=dev)
+    w, b = (torch.randn(c, generator=g, device=dev) for _ in range(2))
+    return x.to(dtype), w, b
+
+
+def phase_layer_norm(dev, results):
+    """The LayerNorm kernel against its plain version (layer_norm_ref) at
+    LN_CASES in bf16 and fp32, under ops.layer_norm.gate_ratio (one ulp of
+    the output type at the element plus ROW_ULPS fp32 ulps of the row's
+    largest normalised output times the row's conditioning; 1 = the gate);
+    planted faults must fail it by LN_FAULT_MARGIN x. Times on the device
+    (device_ms) the kernel alone (att.launch into a preallocated output)
+    and the plain version, beside the bytes bound (x read and y written
+    once, w and b; 3.35 TB/s); the host's cost of a wrapper call and of a
+    plain call."""
+    from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.ops import layer_norm as ln
+
+    ok = True
+    eps = 1e-6
+    for i, (label, c, rows, offset, spread) in enumerate(LN_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = _ln_inputs(rows, c, offset, spread, dtype, dev, 300 + i)
+            out = ln.layer_norm(x, w, b, eps)
+            ref = ln.layer_norm_ref(x, w, b, eps)
+            torch.cuda.synchronize()
+            ratio = ln.gate_ratio(out, ref, x, b, eps)
+            good = ratio <= 1
+            for fault, (case, fdt) in LN_FAULT_CASES.items():
+                if (case, fdt) == (label, dtype):
+                    bad = ln.gate_ratio(ln.layer_norm(x, w, b, eps, ln.FAULTS[fault]), ref,
+                                        x, b, eps)
+                    caught = bad >= LN_FAULT_MARGIN
+                    log(f"[faults] layer_norm {label} {str(dtype)[6:]}: planted '{fault}': "
+                        f"{bad:.3g} of the gate {'caught' if caught else 'MISSED'} (needs >= "
+                        f"{LN_FAULT_MARGIN:g}x)")
+                    ok &= caught
+            into = torch.empty_like(out)
+            args = ln.launch_args(x, into, w, b, eps)
+            ms = device_ms(lambda: att.launch("layer_norm", *args))
+            good &= torch.equal(into, out)  # the timed launches' output, bit for bit
+            plain = device_ms(lambda: ln.layer_norm_ref(x, w, b, eps), iters=10)
+            bnd, by = bound_ms(10.0 * x.numel(), nbytes(x, out, w, b), torch.float32)
+            ok &= good
+            log(f"[kernels] layer_norm {label} {str(dtype)[6:]} [{rows}, {c}] plan (vec, "
+                f"lanes, slots) {args[6:9]}: {ratio:.3g} of the gate; device ms: kernel "
+                f"{ms:.4f} plain {plain:.4f}; bound_ms {bnd:.4f} ({by}, kernel at "
+                f"{bnd / ms:.2f} of it) {'OK' if good else 'FAIL'}")
+            if offset <= 1e3:
+                results.append(dict(
+                    name=f"layer_norm:{label}:{str(dtype)[6:]}", route="cuda", source=LN_SRC,
+                    replaces=LN_REPLACES, kernel="layer_norm", path="serving",
+                    dtype=str(dtype)[6:], shape=[rows, c], gate_ratio=ratio, ms=ms,
+                    plain_ms=plain, bound_ms=bnd, bound_by=by,
+                    bound_scheme="memory: bytes / 3.35 TB/s", library_ms=None))
+            del x, w, b, out, ref, into, args
+            torch.cuda.empty_cache()
+    x, w, b = _ln_inputs(4096, 256, 3.0, 1.0, torch.bfloat16, dev, 399)
+    log(f"[host] layer_norm at [4096, 256] bf16, host us a call: wrapper "
+        f"{host_us(lambda: ln.layer_norm(x, w, b, eps)):.2f}, plain version "
+        f"{host_us(lambda: ln.layer_norm_ref(x, w, b, eps)):.2f}")
+    return ok
+
+
+def watch_layer_norms():
+    """Check every LayerNorm call of the run as it returns: a call that
+    ``uses_kernel`` (and has a row) adds one to LAUNCHES["layer_norm"],
+    any other none. Returns the tally {"kernel", "plain", "wrong"} and the
+    function that undoes the watch."""
+    from det_sam2_tpu_torch.modeling.layers import LayerNorm
+    from det_sam2_tpu_torch.ops import attention as att
+
+    tally = {"kernel": 0, "plain": 0, "wrong": 0}
+    real = LayerNorm.forward
+
+    def forward(self, x):
+        kernel = self.uses_kernel(x) and x.numel() > 0
+        before = att.LAUNCHES.get("layer_norm", 0)
+        out = real(self, x)
+        tally["kernel" if kernel else "plain"] += 1
+        if att.LAUNCHES.get("layer_norm", 0) - before != int(kernel):
+            tally["wrong"] += 1
+        return out
+
+    LayerNorm.forward = forward
+    return tally, lambda: setattr(LayerNorm, "forward", real)
+
+
+def _sans_ln(launches: dict) -> dict:
+    """The launches but the LayerNorm kernel's, which watch_layer_norms
+    checks call by call."""
+    return {k: v for k, v in launches.items() if k != "layer_norm"}
 
 
 # (label, masks, 256^2 -> (H, W), masks a cv2 call (the group), the path
@@ -1150,11 +1293,19 @@ def phase_main(dev):
     torch.cuda.reset_peak_memory_stats()
     init_counts = {}
     timings = []
+    from det_sam2_tpu_torch.modeling.layers import LayerNorm
+
+    norms = [0]
+    hooks = [m.register_forward_hook(lambda *_: norms.__setitem__(0, norms[0] + 1))
+             for m in eng.model.modules() if isinstance(m, LayerNorm)]
     att.reset_launch_counts()
     outs, bank = run_session(eng, frames, True, N_STREAM, timings,
-                             after_init=lambda: init_counts.update(att.LAUNCHES))
+                             after_init=lambda: init_counts.update(att.LAUNCHES,
+                                                                   norms=norms[0]))
     torch.cuda.synchronize()
     launches = dict(att.LAUNCHES)
+    for h in hooks:
+        h.remove()
     peak = torch.cuda.max_memory_allocated()
     profile_steps(eng, frames, bank)
     steady = timings[N_WARM:]
@@ -1178,6 +1329,11 @@ def phase_main(dev):
             or per_frame["flash_banked_keys"] != 4):
         log("[main] unexpected launch counts per frame")
         ok = False
+    good = launches["layer_norm"] == norms[0] > 0
+    log(f"[main] LayerNorm forwards counted by hooks over the session {norms[0]} "
+        f"({(norms[0] - init_counts['norms']) / N_STREAM:g} a stream_step), layer_norm "
+        f"launches {launches['layer_norm']} {'OK' if good else 'FAIL'}")
+    ok &= good
     return ok, launches, (eng, frames, outs[:N_CHECK])
 
 
@@ -1493,9 +1649,9 @@ def phase_train(dev):
         ms = (time.perf_counter() - t0) * 1e3
         step_ms.append(ms)
         vals = {k: float(v) for k, v in metrics.items()}
-        got = {k: att.LAUNCHES[k] - before[k] for k in
-               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
-        want = expected_launches(cfg, sch, TRAIN_T)
+        # LayerNorm under autograd: the plain version, no launch
+        want = dict(expected_launches(cfg, sch, TRAIN_T), layer_norm=0)
+        got = {k: att.LAUNCHES[k] - before[k] for k in want}
         finite = all(math.isfinite(v) for v in vals.values())
         good = finite and got == want
         ok &= good
@@ -2052,7 +2208,7 @@ def export_round_trip(vp, work, gpu):
                "flash_banked_keys": TRACK_K2 * n, "flash_banked_fwd": TRACK_K2 * n,
                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                "mask_resize": 2 + len(want)}  # two box prompts, each yielded frame
-    good = widened and same and launches == implied
+    good = widened and same and _sans_ln(launches) == implied
     log(f"[export] ({gpu}) save_torch_checkpoint of phase 5's bf16 predictor: "
         f"{len(sd)} keys, all fp32 on the CPU: {widened}, {os.path.getsize(path) / 2 ** 20:.1f} "
         f"MiB; det_sam2_tpu_torch.build_sam2_video_predictor from it: {len(got)} frames of "
@@ -2171,7 +2327,7 @@ def phase_predictor(dev, results, work, ckpt):
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "mask_resize": VP_PROMPTS + yielded}
     for step, e, t in VP_EXPECTED:
         log(f"[predictor]   expected: {step}: {e} encodes, {t} memory-conditioned frames")
-    good = launches == want
+    good = _sans_ln(launches) == want
     log(f"[predictor] ({gpu}) launches in the session {launches}, expected {want} "
         f"({enc} encodes x {ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, "
         f"x {TRACK_K2} K2; mask_resize: {VP_PROMPTS} prompt calls + {yielded} yielded "
@@ -2614,7 +2770,7 @@ def phase_application(dev, results, ckpt):
             "flash_banked_keys": TRACK_K2 * trk, "flash_banked_fwd": TRACK_K2 * trk,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "mask_resize": prompts + st["frames_propagated"]}
-    good = (launches == want and rec["prompts"] == prompts
+    good = (_sans_ln(launches) == want and rec["prompts"] == prompts
             and rec["frames"] == st["frames_propagated"])
     log(f"[application] ({gpu}) launches {launches}, expected {want} ({enc} encodes x "
         f"{ENCODE_K1} K1 + {trk} conditioned frames x {TRACK_K1} K1, x {TRACK_K2} K2; "
@@ -2966,7 +3122,7 @@ def phase_image(dev, results, ckpt):
     want = {"flash_fwd": ENCODE_K1 * len(encodes), "flash_banked_keys": 0,
             "flash_banked_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "mask_resize": resizes}
-    good = launches == want and encodes == want_enc
+    good = _sans_ln(launches) == want and encodes == want_enc
     log(f"[image] ({gpu}) encode calls (images each) {encodes}, expected {want_enc}; "
         f"launches {launches}, expected {want} ({ENCODE_K1} K1 an encode call; mask_resize: "
         f"{len(image_calls(IMG_HW))} predict calls + {IMG_BATCH} of predict_batch + AMG "
@@ -3561,7 +3717,7 @@ def phase_http(dev, results, ckpt, work):
         f"{sum(handler)}; on the main thread {len(watch['grad']) - len(handler)} "
         f"{'OK' if good else 'FAIL'}")
     ok &= good
-    good = launches == implied
+    good = _sans_ln(launches) == implied
     log(f"[http] ({gpu}) launches in round 1 {launches}, implied by its calls {implied} "
         f"({watch['encodes']} encodes x {ENCODE_K1} K1 + {watch['conditioned']} "
         f"memory-conditioned calls x {TRACK_K1} K1, x {TRACK_K2} K2) "
@@ -3771,7 +3927,7 @@ def phase_batched(dev, results, eng, ckpt):
             "flash_banked_fwd": steps * TRACK_K2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "mask_resize": 0}
     launches = rec["launches"]
-    good = launches == want
+    good = _sans_ln(launches) == want
     log(f"[batched] ({gpu}) launches over {steps} lockstep steps {launches}, expected "
         f"{want} (a step: {ENCODE_K1} K1 of one batched encode of {b} frames + {TRACK_K1} "
         f"K1 memory self-attention on {o_total} rows, {TRACK_K2} + {TRACK_K2} K2) "
@@ -4308,7 +4464,7 @@ def phase_trainer(dev, results, work, gate, bare_ms):
         jf_launches = dict(att.LAUNCHES)
         implied = _implied(watch)
         grad_on = [g for _, g in watch["grad"] if g]
-        good = (jf_launches == implied and not grad_on and trainer.model.training
+        good = (_sans_ln(jf_launches) == implied and not grad_on and trainer.model.training
                 and 0.0 <= jf["val_JF"] <= 1.0 and math.isfinite(val["val_loss"]))
         log(f"[trainer] ({gpu}) validate over {JF_VIDEOS} clips x {JF_FRAMES} frames "
             f"{VP_HW[0]}x{VP_HW[1]} (2 batches, T={recipe.num_frames}): val_loss "
@@ -4507,7 +4663,7 @@ def phase_int8(dev, results, ckpt):
     step_ms = {k: float(np.mean(v[N_WARM:])) for k, v in timings.items()}
     want = {"flash_fwd": 7.0, "flash_banked_keys": 4.0, "flash_banked_fwd": 4.0,
             "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "mask_resize": 0.0}
-    good = per_frame == want and products == 64 * (INT8_STEPS + 1)
+    good = _sans_ln(per_frame) == want and products == 64 * (INT8_STEPS + 1)
     log(f"[int8] ({gpu}) {INT8_STEPS} stream_steps, 2 objects, banked: int8 trunk "
         f"{step_ms['int8']:.3f} ms/frame, bf16 {step_ms['bf16']:.3f} ms/frame (mean of steps "
         f"{N_WARM + 1}..{INT8_STEPS}); launches {launches}, per stream_step {per_frame} "
@@ -4842,7 +4998,7 @@ def phase_sharded(dev, results, ckpt, work):
     sliced = all(r["bank_objects"] == SHARD_OBJECTS // SHARD_WORLD and not r["bank_mem_k"]
                  for r in obj)
     want = dict(zero, flash_fwd=SHARD_K1)
-    counts_ok = all(r["launches"] == want for r in obj)
+    counts_ok = all(_sans_ln(r["launches"]) == want for r in obj)
     held_ok = all(r["held"]["good"] for r in obj)
     n_held = sum(r["held"]["n"] for r in obj)
     good = same_ranks and sliced and counts_ok and held_ok and n_held == SHARD_WORLD * SHARD_STEPS * 4
@@ -4866,7 +5022,7 @@ def phase_sharded(dev, results, ckpt, work):
                           [f.cpu() for f in ref_feats], sp[0]["feats"])
     same_feats = all(torch.equal(a, b) for r in sp[1:] for a, b in zip(r["feats"], sp[0]["feats"]))
     want = dict(zero, flash_fwd=ENCODE_K1)
-    counts_ok = all(r["launches"] == want for r in sp)
+    counts_ok = all(_sans_ln(r["launches"]) == want for r in sp)
     held_ok = all(r["held"]["good"] for r in sp) and sum(r["held"]["n"] for r in sp) == \
         SHARD_WORLD * ENCODE_K1
     nq = [r["keep"][0].shape[1] for r in sp]
@@ -4945,6 +5101,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     from det_sam2_tpu_torch.ops import attention as att
+    from det_sam2_tpu_torch.ops import layer_norm  # noqa: F401 (registers its kernel)
     from det_sam2_tpu_torch.ops import mask_resize  # noqa: F401 (registers its kernel)
 
     t0 = time.time()
@@ -4957,6 +5114,7 @@ def main() -> int:
                 log(f"[build] {name}: {line}")
 
     results = []
+    ln_calls, unwatch_ln = watch_layer_norms()
     t_phase = time.time()
     ok = phase_kernels(dev, results)
     log(f"[time] phase 1 (kernels) {time.time() - t_phase:.1f} s")
@@ -5032,14 +5190,15 @@ def main() -> int:
               "spatial": spatial}
     for r in results:
         r["launches"] = counts[r.pop("path")][r.pop("kernel")]
-    serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd")
+    serving_kernels = ("flash_fwd", "flash_banked_keys", "flash_banked_fwd", "layer_norm")
     # the paths that hand out masks at video or image size resize them too
     predictor_kernels = serving_kernels + ("mask_resize",)
     for path, names in (("serving", serving_kernels),
                         ("training", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                         ("predictor", predictor_kernels), ("export", predictor_kernels),
                         ("application", predictor_kernels),
-                        ("image", ("flash_fwd", "mask_resize")), ("http", predictor_kernels),
+                        ("image", ("flash_fwd", "layer_norm", "mask_resize")),
+                        ("http", predictor_kernels),
                         ("batched", serving_kernels),
                         ("trainer", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
                         ("validate_jf", predictor_kernels),
@@ -5053,6 +5212,12 @@ def main() -> int:
                              if r["name"].startswith(n + ":")}:
         log("[main] the kernel table does not cover every kernel")
         ok = False
+    unwatch_ln()
+    log(f"[main] LayerNorm calls in this process: {ln_calls['kernel']} took the kernel, "
+        f"{ln_calls['plain']} the plain version (CPU, autograd, plain engines); launches "
+        f"not as the call's path implies: {ln_calls['wrong']} "
+        f"{'OK' if not ln_calls['wrong'] else 'FAIL'}")
+    ok &= not ln_calls["wrong"] and ln_calls["kernel"] > 0
     log(f"[time] the whole command {time.time() - t_start:.1f} s")
     if not ok:
         log("chip_smoke: FAILED")

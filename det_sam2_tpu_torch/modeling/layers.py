@@ -64,30 +64,58 @@ class MLP(nn.Module):
         return x
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the trailing axis with fp32 statistics.
+def layer_norm_ref(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """LayerNorm over the trailing axis with fp32 statistics, in plain
+    PyTorch: the plain version of ``ops.layer_norm``'s kernel.
 
     The variance is the SHIFTED one-pass form of the JAX package: with
     c = x[..., :1], Var[x] = E[(x-c)^2] - (E[x]-c)^2. Both moments are
     O(std^2 + (mean-c)^2), so the subtraction does not cancel when
     |mean| >> std (the unshifted E[x^2] - E[x]^2 loses ~mean^2 * eps_fp32).
     """
+    orig_dtype = x.dtype
+    x = x.float()
+    xc = x - x[..., :1]
+    mean_c = xc.mean(-1, keepdim=True)
+    mean2_c = xc.square().mean(-1, keepdim=True)
+    var = (mean2_c - mean_c.square()).clamp_min(0.0)
+    y = (xc - mean_c) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(orig_dtype)
+
+
+_KERNEL = []  # ops.layer_norm.layer_norm, once imported (that module imports this one)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing axis with fp32 statistics, the formula of
+    ``layer_norm_ref``. A call that ``uses_kernel`` launches the one-pass
+    kernel (``ops.layer_norm``); every other call computes ``layer_norm_ref``
+    itself. ``plain`` = True keeps a module on the plain version (an engine
+    built with plain_kernels)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.eps = eps
+        self.plain = False
+
+    def uses_kernel(self, x) -> bool:
+        """A call on x takes the kernel: x lies on a card, the module is not
+        plain, and the call builds no autograd graph (the kernel has no
+        backward; training keeps the plain version's)."""
+        return x.is_cuda and not self.plain and not (
+            torch.is_grad_enabled() and (x.requires_grad or self.weight.requires_grad))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        orig_dtype = x.dtype
-        x = x.float()
-        xc = x - x[..., :1]
-        mean_c = xc.mean(-1, keepdim=True)
-        mean2_c = xc.square().mean(-1, keepdim=True)
-        var = (mean2_c - mean_c.square()).clamp_min(0.0)
-        y = (xc - mean_c) * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float() + self.bias.float()).to(orig_dtype)
+        if self.uses_kernel(x):
+            if not _KERNEL:
+                from det_sam2_tpu_torch.ops.layer_norm import layer_norm
+
+                _KERNEL.append(layer_norm)
+            return _KERNEL[0](x, self.weight, self.bias, self.eps)
+        return layer_norm_ref(x, self.weight, self.bias, self.eps)
 
 
 def uniform(shape, generator: torch.Generator, device) -> torch.Tensor:

@@ -213,10 +213,12 @@ class SAM2Engine:
             params = convert.init_params(model, seed)
         model.load_state_dict(params, strict=True)
         model = model.to(device=self.device, dtype=dtype).eval()
-        # LayerNorm computes in fp32; keep its parameters fp32 as well
+        # LayerNorm computes in fp32; keep its parameters fp32 as well, and
+        # plain with the other kernels
         for m in model.modules():
             if isinstance(m, LayerNorm):
                 m.float()
+                m.plain = plain_kernels
         self.model = model
         if self.device.type == "cuda":
             # torch's cuDNN attention backend, its first pick for Hiera's

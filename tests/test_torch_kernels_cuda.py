@@ -1,5 +1,6 @@
-"""K1 / K2 (pre-pass and main) / K3a / K3b CUDA kernels and the mask resize
-kernel against their plain PyTorch versions, on the card.
+"""K1 / K2 (pre-pass and main) / K3a / K3b CUDA kernels, the mask resize
+kernel and the LayerNorm kernel against their plain PyTorch versions, on
+the card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch with CUDA:
@@ -14,7 +15,7 @@ step: max-abs error <= MAX_ULPS ulps of max|ref| and mean-abs error <=
 MEAN_EPS * eps * mean|ref|. bf16: both sides round an fp32 result to bf16
 and the kernel also rounds the unnormalised P per key tile; fp32: another
 summation order and expf. The mask resize kernel computes cv2's bits:
-equal bit for bit.
+equal bit for bit. The LayerNorm kernel: ops.layer_norm.gate_ratio.
 """
 
 import math
@@ -513,3 +514,169 @@ def test_mask_resize_matches_plain_bit_for_bit_on_cuda(dev, n, out_hw, group):
     ref = mr.resize_masks_cv2_ref(x, out_hw, group)
     assert out.shape == (n,) + out_hw and out.dtype == torch.float32
     assert torch.equal(out.cpu().view(torch.int32), ref.view(torch.int32))
+
+
+# LayerNorm (csrc/layer_norm.cu): every width the port normalises at the row
+# count of the benchmark cells' largest call of that width: the memory
+# encoder's downsampler (C = 4, 16, 64) and memory attention (256) at 64
+# object rows, Hiera-S's stages at 4 frames, Hiera-L's at 16
+LN_CASES = ((4, 512 * 512 * 64), (16, 256 * 256 * 64), (64, 128 * 128 * 64),
+            (96, 256 * 256 * 4), (144, 256 * 256 * 16), (192, 128 * 128 * 4),
+            (256, 64 * 4096), (288, 128 * 128 * 16), (384, 64 * 64 * 4),
+            (576, 64 * 64 * 16), (768, 32 * 32 * 4), (1152, 32 * 32 * 16))
+
+
+def _ln_inputs(rows, c, dt, dev, seed=0, offset=0.0, scale=1.0):
+    """x [rows, c] of type dt: N(0, 1) rows scaled by `scale` and moved by
+    per-row means up to `offset`; w, b fp32 N(0, 1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, c, generator=g, device=dev) * scale
+    x += offset * torch.rand(rows, 1, generator=g, device=dev)
+    w, b = (torch.randn(c, generator=g, device=dev) for _ in range(2))
+    return x.to(dt), w, b
+
+
+def _ln_held(x, w, b, eps=1e-6, fault=0):
+    """The kernel's call against the plain version: (gate ratio, output);
+    one launch a call."""
+    from det_sam2_tpu_torch.ops import layer_norm as ln
+
+    before = att.LAUNCHES["layer_norm"]
+    out = ln.layer_norm(x, w, b, eps, fault=fault)
+    torch.cuda.synchronize()
+    assert att.LAUNCHES["layer_norm"] == before + 1
+    assert out.shape == x.shape and out.dtype == x.dtype and out.is_contiguous()
+    return ln.gate_ratio(out, ln.layer_norm_ref(x, w, b, eps), x, b, eps), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c, rows", LN_CASES, ids=lambda x: str(x))
+def test_layer_norm_matches_plain_at_the_cells_calls_on_cuda(dev, dtype, c, rows):
+    """Within its gate of the plain version (ops.layer_norm.gate_ratio: one
+    ulp of the output type at the element plus a few fp32 ulps of the row's
+    largest normalised output times the row's conditioning) at every width
+    of the port, rows of mean up to 3."""
+    x, w, b = _ln_inputs(rows, c, getattr(torch, dtype), dev, seed=c, offset=3.0)
+    ratio, _ = _ln_held(x, w, b)
+    assert ratio <= 1, f"{ratio:.3g} of the gate"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("c, rows", [(144, 1000003), (1152, 4097), (4, 257), (16, 33),
+                                     (256, 7), (576, 1), (7, 300), (100, 1001), (1536, 65)],
+                         ids=lambda x: str(x))
+def test_layer_norm_ragged_rows_and_odd_widths_on_cuda(dev, dtype, c, rows):
+    """A ragged last block (rows not a multiple of a block's or a warp's
+    rows), one row, and widths off 16 bytes (narrower vectors)."""
+    x, w, b = _ln_inputs(rows, c, getattr(torch, dtype), dev, seed=rows, offset=1.0)
+    ratio, _ = _ln_held(x, w, b, eps=1e-5)
+    assert ratio <= 1, f"{ratio:.3g} of the gate"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, offset, scale", [("float32", 1e4, 1.0),
+                                                  ("float32", 3e3, 0.01),
+                                                  ("bfloat16", 256.0, 8.0)])
+def test_layer_norm_rows_whose_mean_dwarfs_their_spread_on_cuda(dev, dtype, offset, scale):
+    """|mean| >> std, where the unshifted E[x^2] - E[x]^2 cancels: the
+    kernel's shifted statistics hold the gate, and the planted unshifted
+    variance fails it."""
+    from det_sam2_tpu_torch.ops import layer_norm as ln
+
+    x, w, b = _ln_inputs(65536, 144, getattr(torch, dtype), dev, seed=5, scale=scale)
+    x = (x.float() + offset).to(x.dtype)
+    ratio, _ = _ln_held(x, w, b)
+    assert ratio <= 1, f"{ratio:.3g} of the gate"
+    if dtype == "float32":
+        bad, _ = _ln_held(x, w, b, fault=ln.FAULTS["unshifted variance"])
+        assert bad >= 7, f"the unshifted variance reads {bad:.3g} of the gate"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layer_norm_non_contiguous_and_unaligned_inputs_on_cuda(dev, dtype):
+    """A permuted view (an NCHW map read as NHWC) and a view 2 bytes off
+    16-byte alignment: the wrapper makes each contiguous and aligned."""
+    dt = getattr(torch, dtype)
+    x, w, b = _ln_inputs(2 * 32 * 32, 64, dt, dev, seed=3, offset=1.0)
+    nchw = x.reshape(2, 32, 32, 64).permute(0, 3, 1, 2).contiguous()
+    x = nchw.permute(0, 2, 3, 1)
+    assert not x.is_contiguous()
+    ratio, _ = _ln_held(x, w, b)
+    assert ratio <= 1, f"{ratio:.3g} of the gate"
+    x, w, b = _ln_inputs(101, 144, dt, dev, seed=4, offset=1.0)
+    x = x.reshape(-1)[1:1 + 100 * 144].reshape(100, 144)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    ratio, _ = _ln_held(x, w, b)
+    assert ratio <= 1, f"{ratio:.3g} of the gate"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["last vector of a row not read", "w and b swapped"])
+def test_layer_norm_planted_faults_fail_the_gate_on_cuda(dev, fault):
+    from det_sam2_tpu_torch.ops import layer_norm as ln
+
+    x, w, b = _ln_inputs(4096, 144, torch.bfloat16, dev, seed=6, offset=1.0)
+    bad, _ = _ln_held(x, w, b, fault=ln.FAULTS[fault])
+    assert bad >= 7, f"{fault}: {bad:.3g} of the gate"
+
+
+@pytest.mark.cuda
+def test_layer_norm_under_autograd_takes_the_plain_version_on_cuda(dev):
+    """Training keeps the plain version's autograd: no launch, gradients
+    flow; the same call without a graph launches the kernel once."""
+    from det_sam2_tpu_torch.modeling.layers import LayerNorm
+
+    mod = LayerNorm(144).to(dev)
+    x = torch.randn(64, 144, device=dev, requires_grad=True)
+    before = att.LAUNCHES["layer_norm"]
+    mod(x).square().sum().backward()
+    assert att.LAUNCHES["layer_norm"] == before
+    assert x.grad is not None and mod.weight.grad is not None
+    with torch.no_grad():
+        mod(x)
+    assert att.LAUNCHES["layer_norm"] == before + 1
+
+
+@pytest.mark.cuda
+def test_every_layernorm_forward_of_an_engine_step_launches_the_kernel_on_cuda(dev):
+    """One stream_step of a hiera-S bf16 engine: LAUNCHES["layer_norm"]
+    equals the LayerNorm forwards counted by forward hooks, in the trunk,
+    memory attention, the memory encoder and the mask decoder; an engine
+    built with plain_kernels launches none."""
+    from det_sam2_tpu_torch.configs import sam2_1_hiera_s
+    from det_sam2_tpu_torch.modeling.layers import LayerNorm
+    from det_sam2_tpu_torch.state import init_bank
+    from det_sam2_tpu_torch.track import SAM2Engine
+
+    frames = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 1024, 1024, 3), dtype=np.uint8)).to(dev)
+    for plain in (False, True):
+        eng = SAM2Engine(sam2_1_hiera_s(), dtype=torch.bfloat16, device=dev, seed=0,
+                         plain_kernels=plain)
+        bank = init_bank(eng.cfg, num_objects=2, dtype=eng.dtype, attend_cond_tiles=1,
+                         banked_layers=eng.banked_layers, device=dev)
+        boxes = torch.tensor([[[200.0, 240.0], [520.0, 610.0]],
+                              [[600.0, 150.0], [900.0, 480.0]]], device=dev)
+        labels = torch.tensor([[2, 3], [2, 3]], device=dev)
+        feats = eng.encode_image(frames[0:1])
+        out = eng.prompt_step(feats, bank, 0, 1000, boxes, labels, is_init=True)
+        bank = eng.encode_cond_memory(feats, bank, 0, out["pred_masks"],
+                                      out["object_score_logits"], out["obj_ptr"])
+        torch.cuda.synchronize()
+        calls = {}
+        hooks = [m.register_forward_hook(
+            lambda m, i, o, name=name: calls.__setitem__(name, calls.get(name, 0) + 1))
+            for name, m in eng.model.named_modules() if isinstance(m, LayerNorm)]
+        before = att.LAUNCHES["layer_norm"]
+        eng.stream_step(frames[1:2], bank, 1, 1000)
+        torch.cuda.synchronize()
+        for h in hooks:
+            h.remove()
+        launched = att.LAUNCHES["layer_norm"] - before
+        assert {n.split(".")[0] for n in calls} >= {
+            "image_encoder", "memory_attention", "memory_encoder", "sam_mask_decoder"}
+        assert launched == (0 if plain else sum(calls.values())), (launched, calls)
+        del eng, bank, feats, out
