@@ -1,18 +1,24 @@
 """A cell of BENCHMARK.json and what it is made of, found by name.
 
-  * a configuration: ``configs/<name>.json``, the SAM 2.1 sizes as they are
-    run (every field of the model's config dataclasses) and the engine's
-    settings;
-  * a traffic mix: ``traffic/<name>.json``, the parameters of the one
-    generator below (streams, objects, video size, frame pool, shapes);
+  * a configuration: ``configs/<name>.json``, the model's sizes as they are
+    run (for SAM 2.1 every field of the model's config dataclasses) and the
+    engine's settings;
+  * a traffic mix: ``traffic/<name>.json``, the parameters of its family's
+    generator (for SAM 2.1 the one below: streams, objects, video size,
+    frame pool, shapes) and the warm and traced steps;
   * the limits of the comparison that decides ``correct``:
     ``limits/<workload>.json``;
-  * a per-layer metric: ``metrics/<name>.py`` (see ``layer_metrics``).
+  * a per-layer metric: ``metrics/<name>.py`` (see ``layer_metrics``);
+  * a model family: ``families/<name>.py``, named by the configuration's
+    ``family`` key (``sam2_1`` where it has none): how the cell's program,
+    weights, traffic, reference, compared numbers, control, traced ranges
+    and model FLOPs are made (see ``family``).
 
-The generator makes, from the run's seed, the frames every stream hands
-over (a cycled pool of moving discs on a panning texture, at the model's
-input size) and one box prompt an object. A new cell needs new files and a
-BENCHMARK.json entry, and no edit of a file that is there.
+The generator below is SAM 2.1's (its family module calls it). It makes,
+from the run's seed, the frames every stream hands over (a cycled pool of
+moving discs on a panning texture, at the model's input size) and one box
+prompt an object. A new cell, or a new family, needs new files and
+BENCHMARK.json entries, and no edit of a file that is there.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ class Cell:
     traffic: dict
     limits: dict
     chips: int
+    root: Path
 
 
 def load_cell(workload: str, root: Path = HERE.parent) -> Cell:
@@ -59,7 +66,32 @@ def load_cell(workload: str, root: Path = HERE.parent) -> Cell:
         traffic_name=w["traffic"],
         traffic=json.loads((base / "traffic" / f"{w['traffic']}.json").read_text()),
         limits=json.loads((base / "limits" / f"{workload}.json").read_text()),
-        chips=int(w["chips"]))
+        chips=int(w["chips"]), root=root)
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(cell: Cell):
+    """The module ``families/<name>.py`` of the cell's root for the family
+    that the cell's configuration names. It provides ``NUMBERS`` (the
+    compared numbers, the keys of the cell's limits), ``REFERENCE`` (its
+    reference package under ``port_bench/``, which imports nothing of the
+    program), ``make_traffic`` (the run's inputs from the seed), ``setup``
+    (the program over them: an object with ``prompt()``, ``step()``,
+    ``close()`` giving the record ``compare`` reads, ``b`` stream-frames a
+    step, ``k`` the last step and ``device``), ``ranges`` (the traced
+    (name, module) pairs), ``trace_cell`` (the readers' ``trace.cell``, with
+    ``step_flops(k)``), ``compare``, ``control_record`` (the control's
+    record in the program's place) and ``published`` (the configuration as
+    the program and the reference build it, and its published preset)."""
+    name = cell.config.get("family", "sam2_1")
+    return _load(f"port_bench_family_{name}",
+                 cell.root / "port_bench" / "families" / f"{name}.py")
 
 
 def layer_metrics(workload: str, root: Path = HERE.parent) -> Dict[str, object]:
@@ -72,10 +104,7 @@ def layer_metrics(workload: str, root: Path = HERE.parent) -> Dict[str, object]:
         if "workloads" in m and workload not in m["workloads"]:
             continue
         path = root / "port_bench" / "metrics" / f"{m['name']}.py"
-        spec = importlib.util.spec_from_file_location(f"port_bench_metric_{len(out)}", path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        out[m["name"]] = mod.read
+        out[m["name"]] = _load(f"port_bench_metric_{len(out)}", path).read
     return out
 
 

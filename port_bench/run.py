@@ -3,12 +3,13 @@
     python3 port_bench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up (timed as setup_s, from the process's start): the kernels built or
-loaded from the checkout's build/, the cell's weights and traffic made from
-the seed, the engine and the streamer, the box prompts on frame 0 and the
-warm steps. Then, with --trace 0, live steps for --seconds (the end-to-end
+loaded from the checkout's build/, then what the cell's family
+(families/<family>.py) makes: the weights and traffic from the seed and the
+program (for SAM 2.1 the engine and the streamer), its prompts and the warm
+steps. Then, with --trace 0, live steps for --seconds (the end-to-end
 metrics); with --trace 1, a fixed number of live steps under the profiler
-(the per-layer metrics). Then the program's state is freed and the plain
-reference decides ``correct`` (check.py). The last line of standard output
+(the per-layer metrics). Then the program's state is freed and the family's
+plain reference decides ``correct`` (for SAM 2.1 check.py). The last line of standard output
 is the result, one JSON object; the compared numbers and their limits are
 the last lines of standard error and the result's last key.
 """
@@ -67,19 +68,19 @@ CONTROL_STEPS = 64
 
 
 def run_control(cell, seed: int, device) -> dict:
-    """The comparison's fp8 control in the program's place (check.py): the
-    compared numbers it reads, which have to fail their limits."""
+    """The comparison's lower-precision control in the program's place (the
+    family's ``control_record``): the compared numbers it reads, which have
+    to fail their limits."""
     import torch
 
-    from port_bench import cells, check
-    from port_bench.reference import configs as ref_configs
+    from port_bench import cells
 
     device = torch.device(device)
-    ref_cfg = cells.model_config(ref_configs, cell.config)
-    traffic = cells.make_traffic(cell.traffic, ref_cfg.image_size, seed, device)
+    fam = cells.family(cell)
+    traffic = fam.make_traffic(cell.config, cell.traffic, seed, device)
     steps = int(cell.traffic["warm_steps"]) + CONTROL_STEPS
-    rec = check.control_record(cell.config, cell.traffic, traffic, seed, steps, device)
-    numbers = check.compare(cell.config, cell.traffic, traffic, rec, seed, device)
+    rec = fam.control_record(cell.config, cell.traffic, traffic, seed, steps, device)
+    numbers = fam.compare(cell.config, cell.traffic, traffic, rec, seed, device)
     print("[check] " + ", ".join(f"{k} {v!r}" for k, v in numbers.items()), file=sys.stderr)
     checks = {k: {"value": v, "limit": float(cell.limits[k])} for k, v in numbers.items()}
     return {"check": checks, "correct": all(v["value"] <= v["limit"] for v in checks.values())}
@@ -88,22 +89,19 @@ def run_control(cell, seed: int, device) -> dict:
 def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
              int8: bool = False) -> dict:
     """One run of ``cell`` on ``device``: the result object without its
-    checks of the card and of the loaded modules. int8: the program with its
-    W8A8 int8 trunk (a lower-precision path of its own)."""
+    checks of the card and of the loaded modules. The cell's family builds
+    the program and its inputs and decides ``correct``. int8: the program
+    with its W8A8 int8 trunk (a lower-precision path of its own)."""
     import numpy as np
     import torch
 
-    from det_sam2_tpu_torch import configs as port_configs
-    from port_bench import cells, check, live
+    from port_bench import cells, live
     from port_bench import trace as tracing
-    from port_bench.reference import configs as ref_configs
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     conf, tr = cell.config, cell.traffic
-    port_cfg = cells.model_config(port_configs, conf)
-    ref_cfg = cells.model_config(ref_configs, conf)
-    dtype = cells.DTYPES[conf["engine"]["dtype"]]
+    fam = cells.family(cell)
     if cuda:
         import det_sam2_tpu_torch.ops.mask_resize  # noqa: F401  (registers its kernel)
         from det_sam2_tpu_torch.ops import attention as att
@@ -111,12 +109,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         att.build_kernels(KERNELS)
         torch.cuda.set_device(device)
         torch.cuda.reset_peak_memory_stats()
-    traffic = cells.make_traffic(tr, ref_cfg.image_size, seed, device)
-    sd = cells.seeded_weights(ref_cfg, seed, device, dtype, conf["assumed"])
-    engine = live.build_engine(port_cfg, sd, dtype, device, bool(conf["engine"]["banked"]),
-                               int8=int8)
-    del sd
-    lv = live.LiveStreams(engine, traffic, tr, device)
+    traffic = fam.make_traffic(conf, tr, seed, device)
+    lv = fam.setup(conf, tr, traffic, seed, device, int8=int8)
     lv.prompt()
     for _ in range(int(tr["warm_steps"])):
         lv.step()
@@ -139,12 +133,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
               f"{float(np.median(lat)) * 1e3:.3f} ms", file=sys.stderr)
     else:
         n = int(tr["trace_steps"])
-        tc = tracing.traced(lv, n, {"cfg": ref_cfg, "frames": b, "rows": lv.b * lv.o,
-                                    "frame_indices": list(range(first, first + n))})
+        tc = tracing.traced(lv, n, fam.trace_cell(conf, lv, first, n), fam.ranges(lv))
         out["attempted"] = n * b
         units = {m["name"]: m["unit"] for m in
-                 json.loads((ROOT / "BENCHMARK.json").read_text())["per_layer"]}
-        for name, read in cells.layer_metrics(cell.name, ROOT).items():
+                 json.loads((cell.root / "BENCHMARK.json").read_text())["per_layer"]}
+        for name, read in cells.layer_metrics(cell.name, cell.root).items():
             v = read(tc)
             if v is not None:
                 out["metrics"][name] = {"value": float(v), "unit": units[name]}
@@ -153,21 +146,17 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         print(f"[trace] {n} steps in {tc.window_s:.3f} s ({n * b / tc.window_s:.3f} "
               f"stream-frames/s traced); device ms a step by range: "
               + ", ".join(f"{r} {1e3 * (tc.range_device_s(r) or 0) / n:.3f}"
-                          for r in tracing.RANGES)
+                          for r in tc.range_names)
               + "; launches: " + ", ".join(f"{f} {len(tc.kernels(f))}" for f in (
                   "::flash_fwd_bf16<", "::flash_banked_bf16<", "flash_banked_keys_kernel",
                   "mask_resize_kernel", "flash_fwd_kernel")),
               file=sys.stderr)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     rec = lv.close()
-    del engine, lv
+    del lv
     if cuda:
         torch.cuda.empty_cache()
-    t0 = time.time()
-    numbers = check.compare(conf, tr, traffic, rec, seed, device)
-    print(f"[check] reference over {rec['steps']} steps x {len(traffic.rows)} rows "
-          f"(rows {traffic.rows.tolist()}), {len(rec['kept'])} kept steps: "
-          f"{time.time() - t0:.3f} s", file=sys.stderr)
+    numbers = fam.compare(conf, tr, traffic, rec, seed, device)
     print("[check] " + ", ".join(f"{k} {v!r}" for k, v in numbers.items()), file=sys.stderr)
     out["check"] = {k: {"value": v, "limit": float(cell.limits[k])} for k, v in numbers.items()}
     out["correct"] = all(v["value"] <= v["limit"] for v in out["check"].values())

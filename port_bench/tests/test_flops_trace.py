@@ -11,7 +11,7 @@ import torch
 
 from port_bench import flops
 from port_bench.reference import configs as rc
-from port_bench.trace import Trace
+from port_bench.trace import RANGES, Trace
 
 METRICS = Path(__file__).resolve().parents[1] / "metrics"
 
@@ -113,7 +113,8 @@ def _timeline():
 
 
 def test_trace_ranges_busy_and_gaps():
-    tr = Trace(_timeline(), steps=2, window_s=2e-3, dispatch_s=[1e-3, 2e-3], cell={})
+    tr = Trace(_timeline(), steps=2, window_s=2e-3, dispatch_s=[1e-3, 2e-3], cell={},
+               ranges=RANGES)
     assert tr.range_device_s("image_encoder") == pytest.approx(400e-6)
     assert tr.range_device_s("memory_attention") == pytest.approx(200e-6)
     assert tr.range_device_s("memory_encoder") is None
@@ -134,8 +135,14 @@ def test_trace_ranges_busy_and_gaps():
 def test_a_roofline_reads_nothing_when_the_launches_differ_from_the_shapes():
     cfg = rc.tiny_test_config()
     tr = Trace(_timeline(), steps=2, window_s=2e-3, dispatch_s=[0.0], cell={
-        "cfg": cfg, "frames": 1, "rows": 1, "frame_indices": [20, 21]})
+        "cfg": cfg, "frames": 1, "rows": 1, "frame_indices": [20, 21]}, ranges=RANGES)
     # the tiny config implies 1 global block + 4 memory layers a step, the
     # timeline has 2 K1 launches a step
     assert reader("k1_roofline")(tr) is None
     assert reader("k2_roofline")(tr) is None
+
+
+def test_step_mfu_reads_the_familys_step_flops():
+    tr = Trace(_timeline(), steps=2, window_s=2e-3, dispatch_s=[0.0], cell={
+        "frame_indices": [20, 21], "step_flops": lambda k: 1e9 * k}, ranges=RANGES)
+    assert reader("step.mfu")(tr) == pytest.approx(100 * 41e9 / (2e-3 * flops.PEAK_BF16))

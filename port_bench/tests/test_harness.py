@@ -116,3 +116,72 @@ def test_the_fp8_control_fails_at_the_cells_size_on_the_card(name):
         pytest.skip("needs a CUDA card")
     res = bench_run.run_control(cells.load_cell(name), SEED, torch.device("cuda", 0))
     assert not res["correct"], (name, res["check"])
+
+
+# the four compared numbers of the tiny SAM 2.1 cell at SEED, traced (a
+# fixed number of steps), as the harness before the family seam computed
+# them with two threads
+PARENT_NUMBERS = {"ptr_err": 7.011206036765872e-07, "feat_err": 0.0, "holes_left": 0.0,
+                  "resize_exact": 0.0}
+
+
+def test_the_sam2_1_numbers_through_the_family_are_the_same_bits(tmp_path):
+    cell = cells.load_cell(tiny.NAME, tiny.write_root(tmp_path))
+    res = bench_run.run_cell(cell, SEED, 0.5, True, "cpu", time.time())
+    assert {k: v["value"] for k, v in res["check"].items()} == PARENT_NUMBERS
+    assert res["correct"] and res["metrics"]["step.mfu"]["value"] > 0
+
+
+@pytest.fixture
+def family_cell(tmp_path):
+    """The second family's cell, its files new under a temporary root."""
+    root = tiny.write_root(tmp_path)
+    with tiny.family_on_path(root):
+        yield cells.load_cell(tiny.FAMILY_NAME, root)
+
+
+def test_a_second_family_added_as_files_alone_holds_to_its_reference(family_cell):
+    res = bench_run.run_cell(family_cell, SEED, 0.5, False, "cpu", time.time())
+    assert res["correct"], res["check"]
+    assert set(res["check"]) == {"feat_err"}
+    assert res["attempted"] > 0 and res["failed"] == 0
+    assert set(res["metrics"]) == {"stream_fps", "frame_p95_ms", "peak_mem_gib", "setup_s"}
+
+
+def _perturbed_weight(monkeypatch):
+    from det_sam2_tpu_torch.modeling.image_encoder import ImageEncoder
+
+    orig = ImageEncoder.load_state_dict
+
+    def perturbed(self, *a, **k):
+        out = orig(self, *a, **k)
+        with torch.no_grad():
+            self.trunk.patch_embed.proj.weight[0].add_(0.01)
+        return out
+
+    monkeypatch.setattr(ImageEncoder, "load_state_dict", perturbed)
+
+
+@pytest.mark.parametrize("control", [False, True], ids=["perturbed_weight", "fp8_control"])
+def test_the_second_family_turns_correct_false(family_cell, monkeypatch, control):
+    if control:
+        res = bench_run.run_control(family_cell, SEED, "cpu")
+    else:
+        _perturbed_weight(monkeypatch)
+        res = bench_run.run_cell(family_cell, SEED, 0.5, False, "cpu", time.time())
+    assert not res["correct"], res["check"]
+    assert res["check"]["feat_err"]["value"] > 3 * res["check"]["feat_err"]["limit"]
+
+
+def test_the_second_family_traced_reports_only_its_listed_readers(family_cell):
+    res = bench_run.run_cell(family_cell, SEED, 0.5, True, "cpu", time.time())
+    assert res["correct"], res["check"]
+    assert set(res["metrics"]) <= set(tiny.FAMILY_READERS)
+    assert res["metrics"]["step.mfu"]["value"] > 0
+    assert res["metrics"]["device.idle_share"]["value"] > 0
+    assert res["attempted"] == tiny.FAMILY_TRAFFIC["trace_steps"] * tiny.FAMILY_TRAFFIC["frames"]
+
+
+def test_a_family_without_an_int8_path_refuses_it(family_cell):
+    with pytest.raises(NotImplementedError):
+        bench_run.run_cell(family_cell, SEED, 0.5, False, "cpu", time.time(), int8=True)

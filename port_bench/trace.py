@@ -2,10 +2,10 @@
 device timeline, and what the per-layer readers read from them.
 
 The ranges come from this benchmark's own files: public forward hooks on the
-SAM 2.1 submodules (their names are pinned by the state-dict layout) open
-and close ``record_function`` ranges. Kernels are given to the range whose
-interval holds their launch on the host (the profiler's correlation id ties
-a kernel to its launch). The trace is exported to a file under TMPDIR and
+modules that the cell's family names (for SAM 2.1, RANGES: submodules whose
+names the state-dict layout pins) open and close ``record_function``
+ranges. Kernels are given to the range whose interval holds their launch on
+the host (the profiler's correlation id ties a kernel to its launch). The trace is exported to a file under TMPDIR and
 read back with json, then removed.
 """
 
@@ -21,14 +21,14 @@ from typing import List, Optional
 RANGES = ("image_encoder", "memory_attention", "sam_mask_decoder", "memory_encoder")
 
 
-def add_ranges(model) -> list:
-    """Forward hooks that open a profiler range named after each module of
-    RANGES while it runs. Returns the hook handles."""
+def add_ranges(ranges) -> list:
+    """Forward hooks that open a profiler range named ``name`` while
+    ``module`` runs, for each (name, module) of ``ranges``. Returns the hook
+    handles."""
     from torch.autograd.profiler import record_function
 
     handles = []
-    for name in RANGES:
-        mod = getattr(model, name)
+    for name, mod in ranges:
         stack: list = []
 
         def pre(_m, _a, _name=name, _stack=stack):
@@ -46,10 +46,12 @@ def add_ranges(model) -> list:
 class Trace:
     """What a traced window left: device operations (kernels, copies,
     fills) with their durations and the range their launch fell in, the
-    host's operator intervals, and the window's own numbers."""
+    host's operator intervals, and the window's own numbers. ``ranges``:
+    the names of the module ranges."""
 
     def __init__(self, events: List[dict], steps: int, window_s: float,
-                 dispatch_s: List[float], cell: dict):
+                 dispatch_s: List[float], cell: dict, ranges):
+        self.range_names = tuple(ranges)
         self.steps = steps
         self.window_s = window_s
         self.dispatch_s = dispatch_s
@@ -66,7 +68,7 @@ class Trace:
                 corr = e.get("args", {}).get("correlation")
                 if corr is not None:
                     launch_ts[corr] = e["ts"]
-            elif cat == "user_annotation" and e["name"] in RANGES:
+            elif cat == "user_annotation" and e["name"] in self.range_names:
                 ranges[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
             elif cat == "cpu_op":
                 self.host_ops.append((e["ts"], e["ts"] + e["dur"], e["name"]))
@@ -138,16 +140,17 @@ class Trace:
         return {"device_ops": top(by_name), "idle_gaps": top(gaps)}
 
 
-def traced(live, steps: int, cell: dict) -> Trace:
+def traced(live, steps: int, cell: dict, ranges) -> Trace:
     """``steps`` live steps under torch.profiler (CPU and CUDA activities)
-    with the module ranges on; returns their Trace."""
+    with the module ranges on (``ranges``: (name, module) pairs); returns
+    their Trace."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
     from port_bench.live import sync
 
-    handles = add_ranges(live.engine.model)
+    handles = add_ranges(ranges)
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             sync(live.device)
@@ -167,4 +170,4 @@ def traced(live, steps: int, cell: dict) -> Trace:
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    return Trace(events, steps, window_s, dispatch, cell)
+    return Trace(events, steps, window_s, dispatch, cell, [name for name, _ in ranges])
